@@ -1,0 +1,80 @@
+"""Vectorized environment API (port of dqn_zoo_tpu/envs/api.py).
+
+A `Game` here is batched: every function takes and returns a NamedTuple of
+tensors with a leading env axis B. Randomness is an input: a game names the
+draws its init and its step need (`init_draws` / `step_draws` make them from
+a `torch.Generator`), so a test can hand in the values the JAX reference drew.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Tuple
+
+import torch
+
+FRAME_HEIGHT = 210
+FRAME_WIDTH = 160
+
+
+class Game(NamedTuple):
+  """A batched game as functions over tensors.
+
+  init:        (init_draws) -> state                  episode-start states
+  step:        (state, actions, step_draws) -> (state, reward, done,
+               life_lost)                             one RAW frame each
+  render:      (state) -> (B, 210, 160, 3) uint8
+  lives:       (state) -> (B,) int32
+  init_draws:  (generator, B, device) -> the draws `init` consumes
+  step_draws:  (generator, B, device) -> the draws one action-repeat group
+               of `step` consumes (a game must need at most one such draw
+               per env per group)
+  """
+
+  name: str
+  num_actions: int
+  init: Callable[[Any], Any]
+  step: Callable[[Any, torch.Tensor, Any],
+                 Tuple[Any, torch.Tensor, torch.Tensor, torch.Tensor]]
+  render: Callable[[Any], torch.Tensor]
+  lives: Callable[[Any], torch.Tensor]
+  init_draws: Callable[..., Any]
+  step_draws: Callable[..., Any]
+
+
+class GroupOutput(NamedTuple):
+  """Result of one agent-step (action-repeat group) for B envs."""
+
+  frame_penult: torch.Tensor  # (B, 210, 160, 3) u8 — substep-3 frame or zeros
+  frame_last: torch.Tensor  # (B, 210, 160, 3) u8 — substep-4 frame or zeros
+  reward_sum: torch.Tensor  # (B,) f32 — sum of raw rewards in the group
+  discount_prod: torch.Tensor  # (B,) f32 — ∏ substep discounts
+  is_first: torch.Tensor  # (B,) bool
+  is_last: torch.Tensor  # (B,) bool
+  is_truncated: torch.Tensor  # (B,) bool — ended by frame cap
+  raw_reward_sum: torch.Tensor  # (B,) f32 — unclipped
+  frames_used: torch.Tensor  # (B,) i32 — raw frames consumed (1..4)
+  lives: torch.Tensor  # (B,) i32
+
+
+def tree_where(mask: torch.Tensor, a, b):
+  """Per-env select over two NamedTuples of (B, ...) tensors."""
+  def sel(x, y):
+    m = mask.reshape(mask.shape + (1,) * (x.dim() - 1))
+    return torch.where(m, x, y)
+  return type(a)(*(sel(x, y) for x, y in zip(a, b)))
+
+
+_REGISTRY = {}
+
+
+def register_game(game: Game) -> Game:
+  _REGISTRY[game.name] = game
+  return game
+
+
+def get_game(name: str) -> Game:
+  from dqn_zoo_torch.envs.games import pong  # noqa: F401
+  if name not in _REGISTRY:
+    raise KeyError(f"Game {name!r} is not ported yet; have "
+                   f"{sorted(_REGISTRY)}.")
+  return _REGISTRY[name]

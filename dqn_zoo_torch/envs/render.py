@@ -1,0 +1,43 @@
+"""Mask-based batched frame rendering (port of dqn_zoo_tpu/envs/render.py)."""
+
+from __future__ import annotations
+
+import torch
+
+from dqn_zoo_torch.envs.api import FRAME_HEIGHT, FRAME_WIDTH
+
+
+def _coord(v, device) -> torch.Tensor:
+  """(B,) or scalar coordinate -> int32, floats truncated like astype."""
+  if isinstance(v, int):
+    return torch.tensor(v, dtype=torch.int32, device=device)
+  return v.to(torch.int32)
+
+
+def rect_mask(y0, y1, x0, x1, device) -> torch.Tensor:
+  """Bool mask of the half-open box [y0, y1) × [x0, x1).
+
+  Coordinates are ints or (B,) tensors; the result is (210, 160) for ints
+  only and (B, 210, 160) otherwise. Separable: a row mask times a column
+  mask, the same pixels as comparing every pixel's coordinates.
+  """
+  rows = torch.arange(FRAME_HEIGHT, dtype=torch.int32, device=device)
+  cols = torch.arange(FRAME_WIDTH, dtype=torch.int32, device=device)
+  y0, y1, x0, x1 = (_coord(v, device) for v in (y0, y1, x0, x1))
+  rm = (rows >= y0[..., None]) & (rows < y1[..., None])
+  cm = (cols >= x0[..., None]) & (cols < x1[..., None])
+  return rm[..., :, None] & cm[..., None, :]
+
+
+def compose(batch: int, device, background_rgb, *layers) -> torch.Tensor:
+  """Paints (mask, rgb) layers over a constant background, later on top.
+
+  Returns (B, 210, 160, 3) uint8; masks are (210, 160) or (B, 210, 160).
+  """
+  frame = torch.tensor(background_rgb, dtype=torch.uint8,
+                       device=device).expand(batch, FRAME_HEIGHT,
+                                             FRAME_WIDTH, 3)
+  for mask, rgb in layers:
+    color = torch.tensor(rgb, dtype=torch.uint8, device=device)
+    frame = torch.where(mask[..., None], color, frame)
+  return frame

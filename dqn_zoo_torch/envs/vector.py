@@ -1,0 +1,165 @@
+"""Batched env wrapper: action repeat, noop starts, truncation, auto-reset.
+
+Port of dqn_zoo_tpu/envs/vector.py. The reference vmaps a single-env step and
+picks the reset or the step branch per env with `lax.cond`; here both run on
+the whole batch and a per-env `torch.where` picks, which is the same thing
+for envs that are independent. The reset branch (a new episode after 1..30
+noop frames) only runs in a superstep where some env needs it.
+
+Kept from the reference: action repeat 4 with post-terminal substeps masked
+out, the penultimate/last frame capture at substeps 3 and 4, the life-loss
+discount, the 108k-frame episode cap (truncation, which bootstraps) and the
+auto-reset that emits a FIRST group.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple, Tuple
+
+import torch
+
+from dqn_zoo_torch.envs.api import (FRAME_HEIGHT, FRAME_WIDTH, Game,
+                                    GroupOutput, tree_where)
+
+
+@dataclasses.dataclass(frozen=True)
+class VectorEnvConfig:
+  action_repeat: int = 4
+  max_noops: int = 30
+  noop_action: int = 0
+  episode_frame_cap: int = 108_000  # raw frames
+
+
+class VecEnvState(NamedTuple):
+  game_state: Any  # batched game NamedTuple (leading dim B)
+  episode_frames: torch.Tensor  # (B,) int32 raw frames this episode
+  needs_reset: torch.Tensor  # (B,) bool
+
+
+class EnvDraws(NamedTuple):
+  """Everything random one `step` may consume, one value per env."""
+
+  noops: torch.Tensor  # (B,) int in [1, max_noops] — noop burn length
+  init: Any  # game init draws of a reset
+  burn: Any  # game step draws for the noop burn of a reset
+  step: Any  # game step draws for the action-repeat group
+
+
+class VectorAtariEnv:
+  """Batched game runner over B envs on one device."""
+
+  def __init__(self, game: Game, batch_size: int,
+               config: VectorEnvConfig = VectorEnvConfig(),
+               device: torch.device | str = "cpu"):
+    self.game = game
+    self.batch_size = batch_size
+    self.config = config
+    self.device = torch.device(device)
+
+  @property
+  def num_actions(self) -> int:
+    return self.game.num_actions
+
+  def draws(self, gen: torch.Generator) -> EnvDraws:
+    b, dev = self.batch_size, self.device
+    return EnvDraws(
+        noops=torch.randint(1, self.config.max_noops + 1, (b,),
+                            generator=gen, device=dev),
+        init=self.game.init_draws(gen, b, dev),
+        burn=self.game.step_draws(gen, b, dev),
+        step=self.game.step_draws(gen, b, dev),
+    )
+
+  def init(self, gen: torch.Generator) -> VecEnvState:
+    """All envs start in needs_reset, so the first step emits FIRST groups."""
+    b, dev = self.batch_size, self.device
+    return VecEnvState(
+        game_state=self.game.init(self.game.init_draws(gen, b, dev)),
+        episode_frames=torch.zeros((b,), dtype=torch.int32, device=dev),
+        needs_reset=torch.ones((b,), dtype=torch.bool, device=dev),
+    )
+
+  def _reset_all(self, draws: EnvDraws):
+    """New episode states for every env after its 1..max_noops noop frames.
+
+    An episode that ends during the burn freezes at its last pre-done frame,
+    as in the reference."""
+    gs = self.game.init(draws.init)
+    b = self.batch_size
+    noop = torch.full((b,), self.config.noop_action, dtype=torch.int64,
+                      device=self.device)
+    done = torch.zeros((b,), dtype=torch.bool, device=self.device)
+    for i in range(self.config.max_noops):
+      active = draws.noops > i
+      g2, _, d2, _ = self.game.step(gs, noop, draws.burn)
+      keep = done | d2
+      gs = tree_where(active & ~keep, g2, gs)
+      done = torch.where(active, keep, done)
+    return gs
+
+  def step(self, state: VecEnvState, actions: torch.Tensor,
+           draws: EnvDraws) -> Tuple[VecEnvState, GroupOutput]:
+    """One agent-step (up to `action_repeat` raw frames) for all B envs.
+
+    Functional: returns new tensors and leaves `state` as it was."""
+    b, dev = self.batch_size, self.device
+    zero_frame = torch.zeros((b, FRAME_HEIGHT, FRAME_WIDTH, 3),
+                             dtype=torch.uint8, device=dev)
+    fzero = torch.zeros((b,), dtype=torch.float32, device=dev)
+    gs_c = state.game_state
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    reward = fzero
+    life_disc = torch.ones((b,), dtype=torch.float32, device=dev)
+    frames = torch.zeros((b,), dtype=torch.int32, device=dev)
+    f_pen = f_last = zero_frame
+    repeat = self.config.action_repeat
+    for m in range(repeat):
+      execute = ~done
+      gs_n, r, d, ll = self.game.step(gs_c, actions, draws.step)
+      gs_c = tree_where(execute, gs_n, gs_c)
+      reward = reward + torch.where(execute, r, fzero)
+      life_disc = life_disc * torch.where(execute & ll, 0.0, 1.0)
+      frames = frames + execute.to(torch.int32)
+      if m >= repeat - 2:
+        shown = torch.where(execute[:, None, None, None],
+                            self.game.render(gs_c), zero_frame)
+        if m == repeat - 2:
+          f_pen = shown
+        else:
+          f_last = shown
+      done = done | (execute & d)
+
+    ep = state.episode_frames + frames
+    truncated = ~done & (ep >= self.config.episode_frame_cap)
+    is_last = done | truncated
+    discount = life_disc * torch.where(done, 0.0, 1.0)
+    lives = self.game.lives(gs_c)
+    reset = state.needs_reset
+    false = torch.zeros_like(reset)
+    if bool(reset.any()):
+      gs_r = self._reset_all(draws)
+      col = reset[:, None, None, None]
+      gs_c = tree_where(reset, gs_r, gs_c)
+      f_pen = torch.where(col, zero_frame, f_pen)
+      f_last = torch.where(col, self.game.render(gs_r), f_last)
+      reward = torch.where(reset, fzero, reward)
+      discount = torch.where(reset, 1.0, discount)
+      is_last = torch.where(reset, false, is_last)
+      truncated = torch.where(reset, false, truncated)
+      frames = torch.where(reset, torch.ones_like(frames), frames)
+      ep = torch.where(reset, torch.ones_like(ep), ep)
+      lives = torch.where(reset, self.game.lives(gs_r), lives)
+    out = GroupOutput(
+        frame_penult=f_pen,
+        frame_last=f_last,
+        reward_sum=reward,  # raw group sum; clipping happens in prep
+        discount_prod=discount,
+        is_first=reset.clone(),
+        is_last=is_last,
+        is_truncated=truncated,
+        raw_reward_sum=reward,
+        frames_used=frames,
+        lives=lives,
+    )
+    return VecEnvState(gs_c, ep, is_last.clone()), out

@@ -9,7 +9,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      shapes, and time kernel, plain version, library call and bound;
   3. drive the main path — build_engine("dqn", "pong", num_envs=128,
      replay_capacity=1e6) in throughput mode (batch 1024) — through enough
-     supersteps for >= 20 learn steps, then one eval chunk; check the loss,
+     supersteps for >= 20 learn steps (a timed window of 600, which holds
+     episode resets), then one eval chunk; check the loss,
      the outputs and that every kernel's launch counter moved;
   4. print the kernels line, the card's name and power limit, and last the
      result line {"ok": true, "device": {...}}.
@@ -31,6 +32,8 @@ import torch
 # HBM3 bandwidth and float32 outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# Input sets a memory-bound kernel's timing rotates through (see time_ms).
+ROTATE = 8
 
 TPU_KERNELS = {
     "gather_windows": "dqn_zoo_tpu/replay/window_gather.py:78",
@@ -50,15 +53,21 @@ def fail(msg: str):
   raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-  """Mean device milliseconds per call, by CUDA events around `iters` calls."""
-  for _ in range(warmup):
-    fn()
+def time_ms(fn, sets=((),), iters: int = 20, warmup: int = 3) -> float:
+  """Mean device milliseconds per call, by CUDA events around `iters` calls.
+
+  The calls rotate through the argument tuples in `sets`. A memory-bound
+  kernel is given sets whose bytes together exceed the card's 50 MB L2, so
+  that each call reads its inputs from HBM, as on the main path, and not
+  from what the previous call left in L2."""
+  n = len(sets)
+  for i in range(warmup):
+    fn(*sets[i % n])
   start = torch.cuda.Event(enable_timing=True)
   end = torch.cuda.Event(enable_timing=True)
   start.record()
-  for _ in range(iters):
-    fn()
+  for i in range(iters):
+    fn(*sets[i % n])
   end.record()
   torch.cuda.synchronize()
   return start.elapsed_time(end) / iters
@@ -91,36 +100,46 @@ def phase_kernels(dev):
     print("KERNEL_CHECK " + json.dumps(line), flush=True)
     return line
 
-  # K1: B = 1024 windows of W = 5 rows from 128 streams. Exact.
+  # K1: B = 1024 windows of W = 5 rows from 128 streams. Exact. Timing
+  # rotates through 8 index sets, 289 MB of rows from a 1.85 GB store.
   b, w, s, r = 1024, 5, 128, 2048
   frames = torch.randint(0, 256, (s, r, 84, 84), generator=gen, device=dev,
                          dtype=torch.uint8)
-  stream = torch.randint(0, s, (b,), generator=gen, device=dev)
-  start = torch.randint(0, r - w + 1, (b,), generator=gen, device=dev)
-  got = twg.gather_windows(frames, stream, start, w)
-  want = twg.gather_windows_plain(frames, stream, start, w)
-  if not torch.equal(got, want):
-    fail("K1 gather_windows differs from its plain version")
-  rows = (stream[:, None] * r + start[:, None]
-          + torch.arange(w, device=dev)).reshape(-1)
   flat = frames.view(s * r, 84 * 84)
+  sets = []
+  for _ in range(ROTATE):
+    stream = torch.randint(0, s, (b,), generator=gen, device=dev)
+    start = torch.randint(0, r - w + 1, (b,), generator=gen, device=dev)
+    rows = (stream[:, None] * r + start[:, None]
+            + torch.arange(w, device=dev)).reshape(-1)
+    sets.append((stream, start, rows))
+  for stream, start, _ in sets:
+    got = twg.gather_windows(frames, stream, start, w)
+    want = twg.gather_windows_plain(frames, stream, start, w)
+    if not torch.equal(got, want):
+      fail("K1 gather_windows differs from its plain version")
   results["gather_windows"] = report(
       "gather_windows", f"B={b} W={w}", 0.0, "exact",
-      time_ms(lambda: twg.gather_windows(frames, stream, start, w)),
-      time_ms(lambda: twg.gather_windows_plain(frames, stream, start, w)),
-      time_ms(lambda: torch.index_select(flat, 0, rows)),
+      time_ms(lambda st, sa, _: twg.gather_windows(frames, st, sa, w), sets),
+      time_ms(lambda st, sa, _: twg.gather_windows_plain(frames, st, sa, w),
+              sets),
+      time_ms(lambda _, __, rw: torch.index_select(flat, 0, rw), sets),
       2 * b * w * 84 * 84 + 8 * b, 0)
-  del frames, flat
+  del frames, flat, sets
 
-  # K2: B = 128 env frame pairs; one penultimate frame all zero.
+  # K2: B = 128 env frame pairs, 8 sets (206 MB) for the timing; one
+  # penultimate frame of each set all zero.
   b = 128
-  f1 = torch.randint(0, 256, (b, 210, 160, 3), generator=gen, device=dev,
-                     dtype=torch.uint8)
-  f2 = torch.randint(0, 256, (b, 210, 160, 3), generator=gen, device=dev,
-                     dtype=torch.uint8)
-  f1[0] = 0
-  got = cuda_prep.pooled_frame_to_84(f1, f2)
-  want = tprep.pooled_frame_to_84_plain(f1, f2)
+  sets = []
+  for _ in range(ROTATE):
+    f1 = torch.randint(0, 256, (b, 210, 160, 3), generator=gen, device=dev,
+                       dtype=torch.uint8)
+    f2 = torch.randint(0, 256, (b, 210, 160, 3), generator=gen, device=dev,
+                       dtype=torch.uint8)
+    f1[0] = 0
+    sets.append((f1, f2))
+  got = torch.cat([cuda_prep.pooled_frame_to_84(*fs) for fs in sets])
+  want = torch.cat([tprep.pooled_frame_to_84_plain(*fs) for fs in sets])
   diff = (got.int() - want.int()).abs()
   exact = float((diff == 0).float().mean())
   if int(diff.max()) > 1 or exact < 0.98:
@@ -130,10 +149,10 @@ def phase_kernels(dev):
   results["pooled_frame_to_84"] = report(
       "pooled_frame_to_84", f"B={b}", float(diff.max()),
       "|diff| <= 1 and >= 98% exact",
-      time_ms(lambda: cuda_prep.pooled_frame_to_84(f1, f2)),
-      time_ms(lambda: tprep.pooled_frame_to_84_plain(f1, f2)), None,
+      time_ms(cuda_prep.pooled_frame_to_84, sets),
+      time_ms(tprep.pooled_frame_to_84_plain, sets), None,
       nbytes, flops, exact_share=exact)
-  del f1, f2
+  del sets
 
   # K3: torso weights at the legacy init scale.
   ws = []
@@ -213,9 +232,8 @@ def phase_kernels(dev):
 
 def phase_main_path(dev):
   """The port's dqn/pong trainer at full width, through the user's entry
-  points; returns (launch counts, summary)."""
+  points; returns the launch counts."""
   from dqn_zoo_torch import kernels
-  from dqn_zoo_torch.replay.device_replay import replay_size
   from dqn_zoo_torch.run.train import build_engine
 
   engine = build_engine("dqn", "pong", num_envs=128,
@@ -236,15 +254,36 @@ def phase_main_path(dev):
   state = engine.run(state, warm)
   torch.cuda.synchronize()
   t_warm = time.perf_counter() - t0
-  timed = 15
+  # The timed window is long enough for pong's first episodes to end
+  # (a near-random policy ends one in ~300-450 agent steps), so it holds
+  # supersteps that run the env's reset branch (the noop burn over all
+  # envs). Each superstep is timed on the host; whether it reset is kept
+  # on the card and read after the window, so the loop adds no wait.
+  timed = 600
   steps_before = state.telemetry.learn_steps
+  episodes_before = float(state.telemetry.completed_count)
+  counts_before = kernels.counts()
+  resets, host_s = [], []
   t0 = time.perf_counter()
-  state = engine.run(state, timed)
+  for _ in range(timed):
+    resets.append(state.env.needs_reset.any())
+    t1 = time.perf_counter()
+    state = engine.superstep(state)
+    host_s.append(time.perf_counter() - t1)
   torch.cuda.synchronize()
   t_run = time.perf_counter() - t0
+  step_s = {True: [], False: []}
+  for reset, sec in zip(torch.stack(resets).tolist(), host_s):
+    step_s[reset].append(sec)
   learned_in_timed = state.telemetry.learn_steps - steps_before
+  if learned_in_timed != timed * cfg.updates_per_learn:
+    fail(f"{learned_in_timed} learn steps in {timed} timed supersteps")
+  counts_after = kernels.counts()
+  per_learning_superstep = {
+      k: (counts_after[k] - counts_before[k]) / timed for k in counts_after}
+  episodes_in_timed = float(state.telemetry.completed_count) - episodes_before
   split = {}
-  fenced = 10
+  fenced = 100
   state = engine.run(state, fenced, timings=split)
   torch.cuda.synchronize()
   train_counts = kernels.counts()
@@ -285,19 +324,23 @@ def phase_main_path(dev):
   torch.testing.assert_close(q, plain, rtol=1e-4, atol=1e-5)
 
   agent_steps = timed * cfg.num_envs
+  mean_ms = lambda xs: 1e3 * sum(xs) / len(xs) if xs else None
   summary = dict(
       supersteps=supersteps, learn_steps=m.learn_steps,
       last_loss=m.last_loss, replay_size=m.replay_size,
       env_frames=m.env_frames, warm_s=t_warm,
+      timed_supersteps=timed,
       env_steps_per_s=agent_steps / t_run,
       env_frames_per_s=4 * agent_steps / t_run,
-      learn_steps_in_timed=learned_in_timed,
       ms_per_superstep=1e3 * t_run / timed,
+      reset_supersteps_in_timed=len(step_s[True]),
+      episodes_ended_in_timed=episodes_in_timed,
+      host_ms_per_reset_superstep=mean_ms(step_s[True]),
+      host_ms_per_other_superstep=mean_ms(step_s[False]),
       split_ms_per_superstep={k: 1e3 * v / fenced for k, v in split.items()},
       eval_frames=int(estate.env_frames),
       train_launches=train_counts,
-      learn_launches_per_learn_step={
-          k: v / m.learn_steps for k, v in train_counts.items()},
+      launches_per_learning_superstep=per_learning_superstep,
       eval_launches={k: counts[k] - train_counts[k] for k in counts},
       q_max_abs_err=float((q - plain).abs().max()),
       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)

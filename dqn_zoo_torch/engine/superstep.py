@@ -55,7 +55,6 @@ class EngineConfig:
   pmap_axis: Optional[str] = None
   overlap_env_learn: bool = False
   num_actions: int = 0
-  frame_multiplier: int = 1
 
   def __post_init__(self):
     if self.overlap_env_learn:
@@ -174,13 +173,12 @@ class Engine:
     s = self.spec
     if s.greedy_actor:
       return 0.0
-    m = self.config.frame_multiplier
     begin_t = s.min_replay_capacity_fraction * self.config.replay_capacity \
-        * m * self.config.env_config.action_repeat
+        * self.config.env_config.action_repeat
     decay = s.exploration_epsilon_decay_frame_fraction \
         * self.config.total_train_frames
     return float(linear_schedule(
-        float(env_frames) * m, begin_value=s.exploration_epsilon_begin,
+        float(env_frames), begin_value=s.exploration_epsilon_begin,
         end_value=s.exploration_epsilon_end, begin_t=begin_t,
         end_t=begin_t + decay))
 
@@ -309,8 +307,7 @@ class Engine:
       nupd = cfg.updates_per_learn
 
     # 7. target swap on frame-count boundary crossings.
-    period = max(1, self.spec.target_network_update_period
-                 // cfg.frame_multiplier)
+    period = max(1, self.spec.target_network_update_period)
     if state.env_frames // period != env_frames // period:
       with torch.no_grad():
         for t, o in zip(leaves(state.target_params), leaves(online)):

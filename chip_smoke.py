@@ -5,15 +5,20 @@
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. build every CUDA kernel from dqn_zoo_torch/csrc (one nvcc per source,
      all in parallel) and print the build time;
-  2. hold each kernel against its plain PyTorch version at the main path's
+  2. hold each kernel against its plain PyTorch version at the main paths'
      shapes, and time kernel, plain version, library call and bound;
-  3. drive the main path — build_engine("dqn", "pong", num_envs=128,
+  3. drive the first main path — build_engine("dqn", "pong", num_envs=128,
      replay_capacity=1e6) in throughput mode (batch 1024) — through enough
      supersteps for >= 20 learn steps (a timed window of 600, which holds
      episode resets), then one eval chunk; check the loss,
-     the outputs and that every kernel's launch counter moved;
-  4. print the kernels line, the card's name and power limit, and last the
+     the outputs and that every kernel of that path was launched;
+  4. drive the second main path — build_engine("iqn", "pong", num_envs=128,
+     replay_capacity=1e6): what an iqn run does before its first learn step
+     (120 acting and replay-filling supersteps) and one eval chunk; check
+     the outputs and that every kernel of that path was launched;
+  5. print the kernels line, the card's name and power limit, and last the
      result line {"ok": true, "device": {...}}.
+The launch counters are set to 0 just before each path and read just after.
 Needs a CUDA card; imports nothing of JAX or of dqn_zoo_tpu.
 """
 
@@ -40,13 +45,26 @@ TPU_KERNELS = {
     "pooled_frame_to_84": "dqn_zoo_tpu/prep/pallas_prep.py:63",
     "dqn_torso_fwd": "dqn_zoo_tpu/nets/torso_pallas.py:159",
     "dqn_torso_fwd_residuals": "dqn_zoo_tpu/nets/torso_pallas.py:112",
+    "iqn_head_fwd": "dqn_zoo_tpu/nets/iqn_head.py:115",
+    "iqn_head_fwd_residuals": "dqn_zoo_tpu/nets/iqn_head.py:115",
 }
 SOURCES = {
     "gather_windows": "dqn_zoo_torch/csrc/window_gather.cu",
     "pooled_frame_to_84": "dqn_zoo_torch/csrc/pooled_frame_to_84.cu",
     "dqn_torso_fwd": "dqn_zoo_torch/csrc/dqn_torso.cu",
     "dqn_torso_fwd_residuals": "dqn_zoo_torch/csrc/dqn_torso.cu",
+    "iqn_head_fwd": "dqn_zoo_torch/csrc/iqn_head.cu",
+    "iqn_head_fwd_residuals": "dqn_zoo_torch/csrc/iqn_head.cu",
 }
+# The kernels each main path must launch. iqn_head_fwd_residuals is on
+# neither yet (the iqn learn step is not ported): it is held against its
+# plain version in the kernel phase only, and the kernels line says so.
+PATH_KERNELS = {
+    "dqn": ("gather_windows", "pooled_frame_to_84", "dqn_torso_fwd",
+            "dqn_torso_fwd_residuals"),
+    "iqn": ("pooled_frame_to_84", "dqn_torso_fwd", "iqn_head_fwd"),
+}
+KERNEL_CHECK_ONLY = ("iqn_head_fwd_residuals",)
 
 
 def fail(msg: str):
@@ -81,7 +99,7 @@ def bound(nbytes: float, flops: float):
 
 def phase_kernels(dev):
   """Each kernel against its plain version at the main path's shapes."""
-  from dqn_zoo_torch.nets import torso_cuda
+  from dqn_zoo_torch.nets import iqn_head, torso_cuda
   from dqn_zoo_torch.nets.core import hwio_to_oihw
   from dqn_zoo_torch.prep import atari as tprep
   from dqn_zoo_torch.prep import cuda_prep
@@ -227,6 +245,62 @@ def phase_kernels(dev):
         time_ms(lambda: torso_cuda.torso_plain_residuals(*ws, x)),
         time_ms(lambda: library(xn)), nbytes, flops,
         grad_rel_frobenius_err=grad_err)
+
+  # K4a: the fused IQN head at the published widths (latent 64, D = 3136,
+  # H = 512), inputs at the scale of the reference's own test of its kernel.
+  # f32 on both sides, TF32 off; the kernel sums each product in another
+  # order than cuBLAS, so rtol 1e-4 with atol 1e-5 holds with room.
+  def head_inputs(b, s, a):
+    n = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    return (n(64, 3136) * 0.05, n(3136) * 0.05, n(3136, 512) * 0.015,
+            n(512) * 0.05, n(512, a) * 0.05, n(a) * 0.05, n(b, s, 64),
+            torch.relu(n(b, 3136)))
+
+  def head_library(we, be, wh, bh, wo, bo, cos_emb, s_emb):
+    # Three f32 addmm (cuBLAS, allow_tf32 False as set_numerics leaves it)
+    # and the elementwise ops between them; te and hi go through memory.
+    b, s, l = cos_emb.shape
+    te = torch.addmm(be, cos_emb.reshape(b * s, l), we).relu_()
+    hi = (te.view(b, s, -1) * s_emb[:, None, :]).view(b * s, -1)
+    return torch.addmm(bo, torch.addmm(bh, hi, wh).relu_(), wo)
+
+  if torch.backends.cuda.matmul.allow_tf32:
+    fail("TF32 matmuls are on; the K4a reference must be full f32")
+  # (B, S, A, residuals, role): act and eval shapes of the iqn main path, a
+  # ragged shape, and the learn step's shapes (online net with residuals,
+  # target net with selector and target taus concatenated), not yet on a
+  # path, timed over 5 launches.
+  shapes = [(128, 64, 6, False, "act"), (128, 64, 6, True, "act"),
+            (4, 64, 6, False, "eval"), (4, 64, 6, True, "eval"),
+            (3, 24, 18, False, "ragged"), (3, 24, 18, True, "ragged"),
+            (1024, 64, 6, True, "learn_online"),
+            (1024, 128, 6, False, "learn_target")]
+  with torch.no_grad():
+    for b, s, a, res, role in shapes:
+      args = head_inputs(b, s, a)
+      want_q, want_h = iqn_head.iqn_head_plain_residuals(*args)
+      if res:
+        got_q, got_h = iqn_head.iqn_head_forward(*args, residuals=True)
+        torch.testing.assert_close(got_h, want_h, rtol=1e-4, atol=1e-5)
+        extra = dict(h_max_abs_err=float((got_h - want_h).abs().max()))
+      else:
+        got_q = iqn_head.iqn_head_forward(*args, residuals=False)
+        extra = {}
+      torch.testing.assert_close(got_q, want_q, rtol=1e-4, atol=1e-5)
+      err = float((got_q - want_q).abs().max())
+      iters = 5 if role.startswith("learn") else 20
+      name = "iqn_head_fwd_residuals" if res else "iqn_head_fwd"
+      nbytes, flops = iqn_head.bound_counts(b, s, a, residuals=res)
+      line = report(
+          name, f"B={b} S={s} A={a}", err, "rtol 1e-4, atol 1e-5",
+          time_ms(lambda: iqn_head.iqn_head_forward(*args, residuals=res),
+                  iters=iters),
+          time_ms(lambda: iqn_head.iqn_head_plain_residuals(*args),
+                  iters=iters),
+          time_ms(lambda: head_library(*args), iters=iters), nbytes, flops,
+          role=role, **extra)
+      if role == "act":
+        results[name] = line
   return results
 
 
@@ -298,9 +372,9 @@ def phase_main_path(dev):
     fail(f"only {m.learn_steps} learn steps")
   if not math.isfinite(m.last_loss):
     fail(f"loss is not finite: {m.last_loss}")
-  for name, n in counts.items():
-    if n == 0:
-      fail(f"kernel {name} was not launched on the main path")
+  for name in PATH_KERNELS["dqn"]:
+    if counts[name] == 0:
+      fail(f"kernel {name} was not launched on the dqn main path")
   if m.replay_size < engine.spec.min_replay_capacity_fraction * \
       cfg.replay_capacity:
     fail("replay below its min fill after learning")
@@ -348,6 +422,118 @@ def phase_main_path(dev):
   return counts
 
 
+def phase_iqn_path(dev):
+  """What an iqn/pong run does before its first learn step, and eval, at
+  full width (latent 64, 64 policy taus, D = 3136, H = 512, A = 6) through
+  the user's entry points; returns the launch counts."""
+  from dqn_zoo_torch import kernels
+  from dqn_zoo_torch.nets import IqnInputs, dqn_torso, iqn_head
+  from dqn_zoo_torch.replay.device_replay import replay_size
+  from dqn_zoo_torch.run.train import build_engine
+
+  engine = build_engine("iqn", "pong", num_envs=128,
+                        replay_capacity=1_000_000, device="cuda")
+  cfg, spec = engine.config, engine.spec
+  min_fill = spec.min_replay_capacity_fraction * cfg.replay_capacity
+  if (spec.tau_samples_policy, spec.tau_latent_dim, spec.optimizer) != \
+      (64, 64, "adam") or min_fill / cfg.num_envs < 150:
+    fail(f"unexpected iqn spec {spec}")
+  state = engine.init(seed=3)
+  torch.cuda.synchronize()
+  print(f"IQN_MAIN engine built: replay {cfg.num_envs}x"
+        f"{cfg.slots_per_stream} rows, learning starts at {min_fill:.0f} "
+        f"rows (superstep ~{min_fill / cfg.num_envs:.0f})", flush=True)
+
+  # 120 supersteps stay below the min fill: acting, replay insert, env step
+  # and prep only. 20 warm, 60 timed as they run, 40 with the fenced split.
+  kernels.reset_counts()
+  warm, timed, fenced = 20, 60, 40
+  state = engine.run(state, warm)
+  torch.cuda.synchronize()
+  size_warm = int(replay_size(state.replay))
+  resets = []
+  t0 = time.perf_counter()
+  for _ in range(timed):
+    resets.append(state.env.needs_reset.any())
+    state = engine.superstep(state)
+  torch.cuda.synchronize()
+  t_timed = time.perf_counter() - t0
+  split = {}
+  state = engine.run(state, fenced, timings=split)
+  torch.cuda.synchronize()
+  t_last = time.perf_counter() - t0
+  train_counts = kernels.counts()
+  estate = engine.eval_init(seed=4, num_envs=4)
+  t0 = time.perf_counter()
+  estate = engine.eval_run(state.online_params, estate, 100)
+  torch.cuda.synchronize()
+  t_eval = time.perf_counter() - t0
+  counts = kernels.counts()
+
+  m = engine.metrics(state)
+  supersteps = warm + timed + fenced
+  if m.learn_steps != 0:
+    fail(f"iqn took {m.learn_steps} learn steps below its min fill")
+  if not size_warm < m.replay_size:
+    fail(f"iqn replay did not grow: {size_warm} -> {m.replay_size}")
+  if train_counts["iqn_head_fwd"] != supersteps or \
+      counts["iqn_head_fwd"] != supersteps + 100:
+    fail(f"iqn_head_fwd launches: {train_counts['iqn_head_fwd']} in "
+         f"{supersteps} training supersteps, {counts['iqn_head_fwd']} with "
+         "the 100 eval supersteps")
+  for name in PATH_KERNELS["iqn"]:
+    if train_counts[name] < supersteps or \
+        counts[name] - train_counts[name] < 100:
+      fail(f"kernel {name} was launched {counts[name]} times on the iqn "
+           "main path")
+  if int(estate.env_frames) <= 0:
+    fail("iqn eval ran no frames")
+
+  # Outputs (after the counts were read: this launches K3a and K4a once
+  # more): the quantile values of the current observations through the
+  # kernels are finite, of shape (128, 64, 6), and agree with the plain head
+  # on the same torso output; Q is their mean over tau.
+  with torch.no_grad():
+    obs = state.stack.frames
+    taus = torch.rand((cfg.num_envs, spec.tau_samples_policy),
+                      generator=state.generator, device=dev)
+    out = engine.network.apply(state.online_params, IqnInputs(obs, taus))
+    p = state.online_params
+    plain = iqn_head.iqn_head_plain(
+        p["tau_embed"]["w"], p["tau_embed"]["b"], p["head"]["hidden"]["w"],
+        p["head"]["hidden"]["b"], p["head"]["out"]["w"],
+        p["head"]["out"]["b"], engine.network.cos_embedding(taus),
+        dqn_torso(p["torso"], obs))
+  q_dist = out.q_dist
+  if tuple(q_dist.shape) != (128, 64, 6) or \
+      tuple(out.q_values.shape) != (128, 6) or \
+      not bool(torch.isfinite(q_dist).all()):
+    fail(f"bad iqn quantile values {tuple(q_dist.shape)}")
+  torch.testing.assert_close(q_dist, plain, rtol=1e-4, atol=1e-5)
+  torch.testing.assert_close(out.q_values, plain.mean(dim=1), rtol=1e-4,
+                             atol=1e-5)
+
+  summary = dict(
+      window="acting only: no learn step below the min fill",
+      supersteps=supersteps, learn_steps=m.learn_steps,
+      replay_size=m.replay_size, env_frames=m.env_frames,
+      timed_supersteps=timed,
+      ms_per_superstep=1e3 * t_timed / timed,
+      acting_only_env_steps_per_s=timed * cfg.num_envs / t_timed,
+      ms_per_superstep_last_100=1e3 * t_last / (timed + fenced),
+      reset_supersteps_in_timed=int(torch.stack(resets).sum()),
+      fenced_supersteps=fenced,
+      split_ms_per_superstep={k: 1e3 * v / fenced for k, v in split.items()},
+      eval_supersteps=100, eval_frames=int(estate.env_frames),
+      eval_ms_per_superstep=1e3 * t_eval / 100,
+      train_launches=train_counts,
+      eval_launches={k: counts[k] - train_counts[k] for k in counts},
+      q_dist_max_abs_err=float((q_dist - plain).abs().max()),
+      peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+  print("IQN_MAIN " + json.dumps(summary), flush=True)
+  return counts
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA card; nothing was run.", file=sys.stderr)
@@ -369,18 +555,35 @@ def main() -> int:
   print(f"BUILD {time.perf_counter() - t0:.2f} s "
         f"{json.dumps(built)}", flush=True)
 
+  kernels.reset_counts()
   checks = phase_kernels(dev)
-  torch.cuda.empty_cache()
-  counts = phase_main_path(dev)
+  check_counts = kernels.counts()
+  # Each engine holds a 7 GB frame store: one path's state is dropped
+  # before the next is built.
+  path_counts = {}
+  for path, phase in (("dqn", phase_main_path), ("iqn", phase_iqn_path)):
+    torch.cuda.empty_cache()
+    path_counts[path] = phase(dev)
 
-  line = {"kernels": [dict(
-      name=name, route="cuda", source=SOURCES[name],
-      replaces=TPU_KERNELS[name], launches=counts[name],
-      max_abs_err=checks[name]["max_abs_err"], ms=checks[name]["ms"],
-      plain_ms=checks[name]["plain_ms"], bound_ms=checks[name]["bound_ms"],
-      bound_by=checks[name]["bound_by"],
-      library_ms=checks[name]["library_ms"]) for name in TPU_KERNELS]}
-  print(json.dumps(line))
+  entries = []
+  for name in TPU_KERNELS:
+    by_path = {path: path_counts[path][name]
+               for path, names in PATH_KERNELS.items() if name in names}
+    entry = dict(
+        name=name, route="cuda", source=SOURCES[name],
+        replaces=TPU_KERNELS[name], launches=sum(by_path.values()),
+        max_abs_err=checks[name]["max_abs_err"], ms=checks[name]["ms"],
+        plain_ms=checks[name]["plain_ms"], bound_ms=checks[name]["bound_ms"],
+        bound_by=checks[name]["bound_by"],
+        library_ms=checks[name]["library_ms"], shape=checks[name]["shape"],
+        launches_by_path=by_path)
+    if name in KERNEL_CHECK_ONLY:
+      # On no main path yet: its launches are the kernel phase's.
+      entry.update(path="kernel_check_only", launches=check_counts[name])
+    elif not entry["launches"]:
+      fail(f"kernel {name} was launched on no main path")
+    entries.append(entry)
+  print(json.dumps({"kernels": entries}))
   smi = subprocess.run(
       ["nvidia-smi", "--query-gpu=name,power.limit",
        "--format=csv,noheader"], capture_output=True, text=True, check=True)

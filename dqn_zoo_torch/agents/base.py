@@ -20,7 +20,8 @@ class LossOutput(NamedTuple):
 
 # loss(spec, network, online_params, target_params, batch, weights)
 LossFn = Callable[..., LossOutput]
-# act(spec, network, params, obs_u8, epsilon, explore_u, random_action)
+# act(spec, network, params, obs_u8, epsilon, explore_u, random_action
+#     [, taus (B, tau_samples_policy) when spec.act_takes_taus])
 #   -> (actions (B,), values (B,))
 ActFn = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
 
@@ -31,6 +32,9 @@ class AgentSpec:
   make_network: Callable[..., Any]  # (spec, num_actions) -> network
   loss: LossFn
   act: ActFn
+  # The engine draws τ samples, U[0, 1) of shape (B, tau_samples_policy),
+  # for every act and hands them to `act` as its last argument (IQN).
+  act_takes_taus: bool = False
 
   # Replay (priority_exponent 0 → uniform replay).
   n_step: int = 1
@@ -108,15 +112,59 @@ class CenteredRMSProp:
       p.add_(update * (-self.learning_rate))
 
 
-def make_optimizer(spec: AgentSpec) -> CenteredRMSProp:
-  if spec.optimizer != "rmsprop":
-    raise NotImplementedError(
-        f"optimizer {spec.optimizer!r} is not ported yet (slice B).")
+class AdamState(NamedTuple):
+  count: torch.Tensor  # () int64 on the CPU: steps taken
+  mu: List[torch.Tensor]  # first moments, one per parameter leaf
+  nu: List[torch.Tensor]  # second moments
+
+
+class Adam:
+  """optax.adam(lr, b1=0.9, b2=0.999, eps): eps outside the root, bias
+  correction by the step count.
+
+    mu ← b1·mu + (1−b1)·g,   nu ← b2·nu + (1−b2)·g²,   t ← t + 1
+    p  ← p − lr · (mu / (1−b1ᵗ)) / (sqrt(nu / (1−b2ᵗ)) + eps)
+  from zero moments. The count lives on the host, so the bias corrections
+  are plain numbers and a step reads nothing back from the device.
+  """
+
+  def __init__(self, learning_rate: float, eps: float, b1: float = 0.9,
+               b2: float = 0.999):
+    self.learning_rate = learning_rate
+    self.eps = eps
+    self.b1 = b1
+    self.b2 = b2
+
+  def init(self, leaves: List[torch.Tensor]) -> AdamState:
+    return AdamState(count=torch.zeros((), dtype=torch.int64),
+                     mu=[torch.zeros_like(p) for p in leaves],
+                     nu=[torch.zeros_like(p) for p in leaves])
+
+  @torch.no_grad()
+  def step(self, leaves: List[torch.Tensor], grads: List[torch.Tensor],
+           state: AdamState) -> None:
+    """Updates the parameter leaves and the state in place."""
+    state.count.add_(1)
+    t = int(state.count)
+    c1 = 1.0 - self.b1 ** t
+    c2 = 1.0 - self.b2 ** t
+    for p, g, mu, nu in zip(leaves, grads, state.mu, state.nu):
+      mu.mul_(self.b1).add_(g, alpha=1 - self.b1)
+      nu.mul_(self.b2).addcmul_(g, g, value=1 - self.b2)
+      update = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
+      p.add_(update * (-self.learning_rate))
+
+
+def make_optimizer(spec: AgentSpec):
   if spec.max_global_grad_norm > 0:
     raise NotImplementedError(
         "max_global_grad_norm > 0 is not ported yet (slice B).")
-  return CenteredRMSProp(spec.learning_rate, spec.rmsprop_decay,
-                         spec.optimizer_epsilon)
+  if spec.optimizer == "rmsprop":
+    return CenteredRMSProp(spec.learning_rate, spec.rmsprop_decay,
+                           spec.optimizer_epsilon)
+  if spec.optimizer == "adam":
+    return Adam(spec.learning_rate, spec.optimizer_epsilon)
+  raise ValueError(spec.optimizer)
 
 
 _REGISTRY = {}
@@ -128,7 +176,7 @@ def register_agent(spec: AgentSpec) -> AgentSpec:
 
 
 def get_agent(name: str) -> AgentSpec:
-  from dqn_zoo_torch.agents import dqn  # noqa: F401
+  from dqn_zoo_torch.agents import dqn, iqn  # noqa: F401
   if name not in _REGISTRY:
     raise KeyError(f"Agent {name!r} is not ported yet; have "
                    f"{sorted(_REGISTRY)}.")
@@ -136,5 +184,5 @@ def get_agent(name: str) -> AgentSpec:
 
 
 def all_agent_names():
-  from dqn_zoo_torch.agents import dqn  # noqa: F401
+  from dqn_zoo_torch.agents import dqn, iqn  # noqa: F401
   return sorted(_REGISTRY)

@@ -15,12 +15,12 @@ permutation.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Union
 
 import numpy as np
 import torch
 
-from dqn_zoo_torch.agents.base import RMSPropState
+from dqn_zoo_torch.agents.base import AdamState, RMSPropState
 from dqn_zoo_torch.engine.superstep import (Engine, EngineState, PendingRow,
                                             Telemetry, leaves)
 from dqn_zoo_torch.envs.vector import VecEnvState
@@ -33,33 +33,44 @@ def tensor(x, device) -> torch.Tensor:
 
 
 def params_from_jax(tree, device, requires_grad: bool = False):
-  """{"torso": {"conv1": {"w", "b"}, ...}, "head": {...}} of numpy arrays
-  → the same nesting of tensors."""
+  """{"torso": {"conv1": {"w", "b"}, ...}, "head": {...}} (and IQN's
+  "tau_embed": {"w", "b"}) of numpy arrays → the same nesting of tensors."""
   if isinstance(tree, dict):
     return {k: params_from_jax(v, device, requires_grad)
             for k, v in tree.items()}
   return tensor(tree, device).requires_grad_(requires_grad)
 
 
-def _find_rms_state(opt_state) -> Any:
+def _find_moments(opt_state) -> Any:
+  """The state of an optax chain that holds `mu` and `nu` parameter trees."""
   if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
     return opt_state
   if isinstance(opt_state, (tuple, list)):
     for s in opt_state:
-      found = _find_rms_state(s)
+      found = _find_moments(s)
       if found is not None:
         return found
   return None
 
 
-def opt_state_from_jax(opt_state, device) -> RMSPropState:
-  """optax centered-RMSProp state (a chain holding a state with `mu` and
-  `nu` parameter trees) → RMSPropState with leaves in sorted-key order."""
-  rms = _find_rms_state(opt_state)
-  if rms is None:
-    raise ValueError("no centered-RMSProp (mu, nu) state in opt_state.")
-  return RMSPropState(mu=leaves(params_from_jax(rms.mu, device)),
-                      nu=leaves(params_from_jax(rms.nu, device)))
+def opt_state_from_jax(opt_state, device) -> Union[RMSPropState, AdamState]:
+  """optax optimizer state → the port's, with leaves in sorted-key order.
+
+  Both optimizers the agents use keep `mu` and `nu`: centered RMSProp's
+  ScaleByRStdDevState has nothing else, Adam's ScaleByAdamState also has
+  the step `count` that its bias correction needs. So a state with `count`
+  is Adam's and comes back as AdamState (the count on the host), one
+  without is RMSProp's."""
+  found = _find_moments(opt_state)
+  if found is None:
+    raise ValueError("no (mu, nu) optimizer state in opt_state.")
+  mu = leaves(params_from_jax(found.mu, device))
+  nu = leaves(params_from_jax(found.nu, device))
+  # Not hasattr: both states are tuples, and every tuple has a `count` method.
+  if "count" in getattr(found, "_fields", ()):
+    return AdamState(count=torch.tensor(int(found.count), dtype=torch.int64),
+                     mu=mu, nu=nu)
+  return RMSPropState(mu=mu, nu=nu)
 
 
 def namedtuple_from_jax(cls, src, device):

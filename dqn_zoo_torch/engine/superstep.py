@@ -9,7 +9,10 @@ B replay rows and runs gated SGD, in the reference's order:
   4. preprocess + stack update  → o_{k+1}                     (kernel K2)
   5. cache pending row k+1
   6. gated learning: sample (K1) → loss (K3b online, K3a target) → grad →
-     centered RMSProp; target swap on frame-count boundary crossings.
+     the agent's optimizer; target swap on frame-count boundary crossings.
+
+An agent whose actor takes τ samples (IQN: the fused head, kernel K4a) gets
+them from the draws too: `act_taus`, U[0, 1) of shape (B, τ samples).
 
 The JAX engine scans supersteps inside one compiled program; here `run` is a
 Python loop over `superstep`, which reads two numbers back from the device
@@ -25,12 +28,13 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Union
 
 import torch
 
 from dqn_zoo_torch import prep
-from dqn_zoo_torch.agents.base import AgentSpec, RMSPropState, make_optimizer
+from dqn_zoo_torch.agents.base import (AdamState, AgentSpec, RMSPropState,
+                                       make_optimizer)
 from dqn_zoo_torch.device import resolve_device
 from dqn_zoo_torch.envs.api import get_game
 from dqn_zoo_torch.envs.vector import (EnvDraws, VecEnvState, VectorAtariEnv,
@@ -111,7 +115,7 @@ class EngineState(NamedTuple):
   replay: dr.ReplayState
   online_params: Any
   target_params: Any
-  opt_state: RMSPropState
+  opt_state: Union[RMSPropState, AdamState]
   generator: torch.Generator
   env_frames: int  # total raw frames across streams
   superstep: int
@@ -144,6 +148,8 @@ class SuperstepDraws(NamedTuple):
   random_action: torch.Tensor  # (B,) — action where the env explores
   sample_u: Optional[torch.Tensor]  # (updates, batch) U[0,1) replay draws
   env: EnvDraws
+  # (B, tau_samples_policy) U[0,1), only for an agent whose act takes τ.
+  act_taus: Optional[torch.Tensor] = None
 
 
 def leaves(tree) -> List[torch.Tensor]:
@@ -229,12 +235,23 @@ class Engine:
     env = env or self.env
     u, a = epsilon_greedy_draws(env.batch_size, self.game.num_actions, gen,
                                 self.device)
+    act_taus = None
+    if self.spec.act_takes_taus:
+      act_taus = torch.rand((env.batch_size, self.spec.tau_samples_policy),
+                            generator=gen, device=self.device)
     sample_u = None
     if learn:
       sample_u = torch.rand(
           (self.config.updates_per_learn, self.config.batch_size),
           generator=gen, device=self.device)
-    return SuperstepDraws(u, a, sample_u, env.draws(gen))
+    return SuperstepDraws(u, a, sample_u, env.draws(gen), act_taus)
+
+  def _act(self, params, obs, epsilon, draws: SuperstepDraws):
+    args = (self.spec, self.network, params, obs, epsilon, draws.explore_u,
+            draws.random_action)
+    if self.spec.act_takes_taus:
+      args += (draws.act_taus,)
+    return self.spec.act(*args)
 
   # --- learning --------------------------------------------------------------
 
@@ -261,9 +278,8 @@ class Engine:
 
     # 1. act on the current stacks.
     eps = self.exploration_epsilon(state.env_frames)
-    actions, values = self.spec.act(
-        self.spec, self.network, state.online_params, state.stack.frames,
-        eps, draws.explore_u, draws.random_action)
+    actions, values = self._act(state.online_params, state.stack.frames,
+                                eps, draws)
     clock.lap("act")
 
     # 2. insert the pending row, now that its action exists.
@@ -405,10 +421,8 @@ class Engine:
     env = self._eval_env(state.episode_return.shape[0])
     if draws is None:
       draws = self.draw(state.generator, env, learn=False)
-    actions, _ = self.spec.act(self.spec, self.network, params,
-                               state.stack.frames,
-                               self.spec.eval_exploration_epsilon,
-                               draws.explore_u, draws.random_action)
+    actions, _ = self._act(params, state.stack.frames,
+                           self.spec.eval_exploration_epsilon, draws)
     env_state, out = env.step(state.env, actions, draws.env)
     obs84 = prep.pooled_frame_to_84(out.frame_penult, out.frame_last,
                                     self.config.resize_method)

@@ -6,7 +6,9 @@ The reference's run protocol: iterations of (train phase, eval phase),
 iteration 0 eval-only, one CSV row and one log line per iteration with the
 reference's 13 fields plus `eval_frames`. Flag names are the JAX CLI's;
 flags of parts not ported yet (checkpoints, the PIL resize, multi-device)
-raise when set. Runs on CUDA unless --device=cpu.
+raise when set. --agent=iqn acts, fills its replay and evaluates; its first
+learn step raises until the IQN loss and the head's backward kernels are
+ported. Runs on CUDA unless --device=cpu.
 """
 
 from __future__ import annotations

@@ -163,6 +163,12 @@ def test_dqn_loss_grad_update_step_matches_jax():
 def test_optimizers_not_ported_yet_raise():
   spec = get_agent("dqn")
   with pytest.raises(NotImplementedError):
-    make_optimizer(dataclasses.replace(spec, optimizer="adam"))
-  with pytest.raises(NotImplementedError):
     make_optimizer(dataclasses.replace(spec, max_global_grad_norm=10.0))
+  with pytest.raises(NotImplementedError):  # clipping, whatever the optimizer
+    make_optimizer(dataclasses.replace(spec, optimizer="adam",
+                                       max_global_grad_norm=10.0))
+  with pytest.raises(ValueError):
+    make_optimizer(dataclasses.replace(spec, optimizer="sgd"))
+  # Adam is ported (tests/test_torch_iqn.py holds it against optax.adam).
+  assert type(make_optimizer(dataclasses.replace(
+      spec, optimizer="adam"))).__name__ == "Adam"

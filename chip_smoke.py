@@ -13,9 +13,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      episode resets), then one eval chunk; check the loss,
      the outputs and that every kernel of that path was launched;
   4. drive the second main path — build_engine("iqn", "pong", num_envs=128,
-     replay_capacity=1e6): what an iqn run does before its first learn step
-     (120 acting and replay-filling supersteps) and one eval chunk; check
-     the outputs and that every kernel of that path was launched;
+     replay_capacity=1e6) at the agent's own min fill: 120 acting and
+     replay-filling supersteps, on past the min fill through >= 20 learn
+     steps (a timed window of 40 learning supersteps, then a fenced split),
+     then one eval chunk; check the loss, the outputs, that the parameters
+     moved and that every kernel of that path was launched as often as the
+     path says;
   5. print the kernels line, the card's name and power limit, and last the
      result line {"ok": true, "device": {...}}.
 The launch counters are set to 0 just before each path and read just after.
@@ -47,6 +50,8 @@ TPU_KERNELS = {
     "dqn_torso_fwd_residuals": "dqn_zoo_tpu/nets/torso_pallas.py:112",
     "iqn_head_fwd": "dqn_zoo_tpu/nets/iqn_head.py:115",
     "iqn_head_fwd_residuals": "dqn_zoo_tpu/nets/iqn_head.py:115",
+    "iqn_head_bwd_w": "dqn_zoo_tpu/nets/iqn_head.py:155",
+    "iqn_head_bwd_d": "dqn_zoo_tpu/nets/iqn_head.py:203",
 }
 SOURCES = {
     "gather_windows": "dqn_zoo_torch/csrc/window_gather.cu",
@@ -55,16 +60,17 @@ SOURCES = {
     "dqn_torso_fwd_residuals": "dqn_zoo_torch/csrc/dqn_torso.cu",
     "iqn_head_fwd": "dqn_zoo_torch/csrc/iqn_head.cu",
     "iqn_head_fwd_residuals": "dqn_zoo_torch/csrc/iqn_head.cu",
+    "iqn_head_bwd_w": "dqn_zoo_torch/csrc/iqn_head_bwd.cu",
+    "iqn_head_bwd_d": "dqn_zoo_torch/csrc/iqn_head_bwd.cu",
 }
-# The kernels each main path must launch. iqn_head_fwd_residuals is on
-# neither yet (the iqn learn step is not ported): it is held against its
-# plain version in the kernel phase only, and the kernels line says so.
+# The kernels each main path must launch.
 PATH_KERNELS = {
     "dqn": ("gather_windows", "pooled_frame_to_84", "dqn_torso_fwd",
             "dqn_torso_fwd_residuals"),
-    "iqn": ("pooled_frame_to_84", "dqn_torso_fwd", "iqn_head_fwd"),
+    "iqn": ("gather_windows", "pooled_frame_to_84", "dqn_torso_fwd",
+            "dqn_torso_fwd_residuals", "iqn_head_fwd",
+            "iqn_head_fwd_residuals", "iqn_head_bwd_w", "iqn_head_bwd_d"),
 }
-KERNEL_CHECK_ONLY = ("iqn_head_fwd_residuals",)
 
 
 def fail(msg: str):
@@ -268,8 +274,8 @@ def phase_kernels(dev):
     fail("TF32 matmuls are on; the K4a reference must be full f32")
   # (B, S, A, residuals, role): act and eval shapes of the iqn main path, a
   # ragged shape, and the learn step's shapes (online net with residuals,
-  # target net with selector and target taus concatenated), not yet on a
-  # path, timed over 5 launches.
+  # target net with selector and target taus concatenated), timed over 5
+  # launches.
   shapes = [(128, 64, 6, False, "act"), (128, 64, 6, True, "act"),
             (4, 64, 6, False, "eval"), (4, 64, 6, True, "eval"),
             (3, 24, 18, False, "ragged"), (3, 24, 18, True, "ragged"),
@@ -299,8 +305,165 @@ def phase_kernels(dev):
                   iters=iters),
           time_ms(lambda: head_library(*args), iters=iters), nbytes, flops,
           role=role, **extra)
-      if role == "act":
+      # The kernels line takes each variant at the shape its path gives it:
+      # q only when acting, q and h for the online net of the learn step.
+      if role == ("learn_online" if res else "act"):
         results[name] = line
+
+  results.update(check_head_backward(dev, gen, report, head_inputs))
+  return results
+
+
+def rel_frobenius(got, want) -> float:
+  return float(torch.linalg.vector_norm(got - want)
+               / torch.linalg.vector_norm(want))
+
+
+def check_head_backward(dev, gen, report, head_inputs):
+  """K4b and K4c against their plain versions at the learn, act, eval and
+  ragged shapes, then the gradients of all eight arguments through the
+  autograd Function at the act shape."""
+  from dqn_zoo_torch.nets import iqn_head
+
+  def w_library(we, be, cos_emb, s_emb, dh):
+    # cuBLAS f32 products; te and hi go through memory.
+    b, s, l = cos_emb.shape
+    te = torch.addmm(be, cos_emb.reshape(b * s, l), we).relu_()
+    hi = (te.view(b, s, -1) * s_emb[:, None, :]).view(b * s, -1)
+    return torch.mm(hi.t(), dh), dh.sum(dim=0)
+
+  def d_library(we, be, wh, cos_emb, s_emb, dh, need_dcos):
+    # cuBLAS f32 products; te_pre, dhi and dte go through memory.
+    b, s, l = cos_emb.shape
+    cos2 = cos_emb.reshape(b * s, l)
+    te_pre = torch.addmm(be, cos2, we)
+    dhi = torch.mm(dh, wh.t())
+    ds_emb = (dhi * te_pre.relu()).view(b, s, -1).sum(dim=1)
+    dte = (dhi.view(b, s, -1) * s_emb[:, None, :]).view(b * s, -1)
+    dte.mul_(te_pre > 0)
+    dcos = torch.mm(dte, we.t()) if need_dcos else None
+    return torch.mm(cos2.t(), dte), dte.sum(dim=0), ds_emb, dcos
+
+  def hold(name, shape, outputs, got, want, small):
+    """Relative Frobenius error <= 1e-4 for every output and, at the small
+    shapes, elementwise rtol 1e-4 with atol 1e-5 of the output's largest
+    magnitude. Returns (largest abs error, largest Frobenius error)."""
+    worst_abs = worst_fro = 0.0
+    for out, g, w in zip(outputs, got, want):
+      fro = rel_frobenius(g, w)
+      if not fro <= 1e-4:
+        fail(f"{name} {shape}: {out} differs from the plain "
+             f"version's, relative Frobenius error {fro}")
+      if small:
+        torch.testing.assert_close(
+            g, w, rtol=1e-4, atol=1e-5 * float(w.abs().max()))
+      worst_abs = max(worst_abs, float((g - w).abs().max()))
+      worst_fro = max(worst_fro, fro)
+    return worst_abs, worst_fro
+
+  results = {}
+  tol = ("relative Frobenius <= 1e-4 per output; small shapes also rtol "
+         "1e-4, atol 1e-5 x max|output|")
+  shapes = [(1024, 64, 6, "learn"), (128, 64, 6, "act"), (4, 64, 6, "eval"),
+            (3, 24, 18, "ragged")]
+  with torch.no_grad():
+    for b, s, a, role in shapes:
+      we, be, wh, bh, wo, bo, cos_emb, s_emb = args = head_inputs(b, s, a)
+      _, h = iqn_head.iqn_head_forward(*args, residuals=True)
+      dq = torch.randn((b * s, a), generator=gen, device=dev)
+      dh = ((dq @ wo.t()) * (h > 0)).contiguous()
+      del h, dq
+      shape = f"B={b} S={s}"
+      small = role != "learn"
+      iters = 20 if small else 5
+
+      w_args = (we, be, cos_emb, s_emb, dh)
+      err, fro = hold("K4b", shape, ("dwh", "dbh"),
+                      iqn_head.iqn_head_bwd_w(*w_args),
+                      iqn_head.iqn_head_bwd_w_plain(*w_args), small)
+      nbytes, flops = iqn_head.bound_counts_bwd_w(b, s)
+      line = report(
+          "iqn_head_bwd_w", shape, err, tol,
+          time_ms(lambda: iqn_head.iqn_head_bwd_w(*w_args), iters=iters),
+          time_ms(lambda: iqn_head.iqn_head_bwd_w_plain(*w_args),
+                  iters=iters),
+          time_ms(lambda: w_library(*w_args), iters=iters), nbytes, flops,
+          role=role, rel_frobenius_err=fro)
+      if role == "learn":
+        results["iqn_head_bwd_w"] = line
+
+      # K4c, all outputs (dcos included), against the plain version with
+      # the kernel's own te_pre > 0 bits; the entries where the plain
+      # version's own bits differ (te_pre within rounding of 0) are counted.
+      d_args = (we, be, wh, cos_emb, s_emb, dh)
+      *got, mask = iqn_head.iqn_head_bwd_d(*d_args, need_dcos=True,
+                                           return_te_mask=True)
+      flips = int((mask.bool() != (cos_emb.reshape(b * s, -1) @ we + be > 0))
+                  .sum())
+      err, fro = hold("K4c", shape, ("dwe", "dbe", "ds_emb", "dcos"), got,
+                      iqn_head.iqn_head_bwd_d_plain(*d_args, te_mask=mask),
+                      small)
+      del got, mask
+      # Timed as the learn step runs it (no dcos: the cosine features come
+      # from drawn taus), and with dcos beside it.
+      nbytes, flops = iqn_head.bound_counts_bwd_d(b, s, need_dcos=False)
+      nbytes_c, flops_c = iqn_head.bound_counts_bwd_d(b, s, need_dcos=True)
+      line = report(
+          "iqn_head_bwd_d", shape, err, tol,
+          time_ms(lambda: iqn_head.iqn_head_bwd_d(*d_args, need_dcos=False),
+                  iters=iters),
+          time_ms(lambda: iqn_head.iqn_head_bwd_d_plain(
+              *d_args, need_dcos=False), iters=iters),
+          time_ms(lambda: d_library(*d_args, False), iters=iters),
+          nbytes, flops, role=role, rel_frobenius_err=fro,
+          te_branch_flips=flips,
+          with_dcos=dict(
+              ms=time_ms(lambda: iqn_head.iqn_head_bwd_d(*d_args),
+                         iters=iters),
+              plain_ms=time_ms(lambda: iqn_head.iqn_head_bwd_d_plain(
+                  *d_args), iters=iters),
+              library_ms=time_ms(lambda: d_library(*d_args, True),
+                                 iters=iters),
+              bound_ms=bound(nbytes_c, flops_c)[0]))
+      if role == "learn":
+        results["iqn_head_bwd_d"] = line
+      del dh
+
+  # The autograd Function at the act shape: gradients of all eight
+  # arguments against autograd of the plain head with the kernels' own ReLU
+  # bits (h > 0 from K4a, te_pre > 0 from K4c), relative Frobenius <= 1e-4.
+  b, s, a = 128, 64, 6
+  args = head_inputs(b, s, a)
+  dq = torch.randn((b, s, a), generator=gen, device=dev)
+  before = [k.launches for k in (iqn_head.FWD_RES, iqn_head.BWD_W,
+                                 iqn_head.BWD_D)]
+  pa = [t.clone().requires_grad_(True) for t in args]
+  ga = torch.autograd.grad((iqn_head.iqn_head(*pa) * dq).sum(), pa)
+  after = [k.launches for k in (iqn_head.FWD_RES, iqn_head.BWD_W,
+                                iqn_head.BWD_D)]
+  if [y - x for x, y in zip(before, after)] != [1, 1, 1]:
+    fail(f"iqn_head under grad launched {before} -> {after}, not one each of "
+         "K4a with residuals, K4b and K4c")
+  with torch.no_grad():
+    we, be, wh, bh, wo, bo, cos_emb, s_emb = args
+    _, h = iqn_head.iqn_head_forward(*args, residuals=True)
+    dh = ((dq.reshape(b * s, a) @ wo.t()) * (h > 0)).contiguous()
+    mask = iqn_head.iqn_head_bwd_d(we, be, wh, cos_emb, s_emb, dh,
+                                   need_dcos=False, return_te_mask=True)[-1]
+    _, plain_h = iqn_head.iqn_head_plain_residuals(*args)
+    flips = int(((h > 0) != (plain_h > 0)).sum()) + int(
+        (mask.bool() != (cos_emb.reshape(b * s, -1) @ we + be > 0)).sum())
+  pb = [t.clone().requires_grad_(True) for t in args]
+  gb = torch.autograd.grad(
+      (iqn_head.iqn_head_plain_masked(*pb, mask.float(), (h > 0).float())
+       * dq).sum(), pb)
+  grad_err = max(rel_frobenius(x, y) for x, y in zip(ga, gb))
+  print(f"K4 gradients through the autograd Function, B={b} S={s}: relative "
+        f"Frobenius error {grad_err:.3e} (ReLU branch flips against the "
+        f"plain forward: {flips})", flush=True)
+  if not grad_err <= 1e-4:
+    fail(f"iqn_head gradients differ from the plain version's: {grad_err}")
+  results["iqn_head_bwd_d"]["function_grad_rel_frobenius_err"] = grad_err
   return results
 
 
@@ -423,10 +586,12 @@ def phase_main_path(dev):
 
 
 def phase_iqn_path(dev):
-  """What an iqn/pong run does before its first learn step, and eval, at
-  full width (latent 64, 64 policy taus, D = 3136, H = 512, A = 6) through
-  the user's entry points; returns the launch counts."""
+  """The port's iqn/pong trainer at full width (latent 64, 64 taus of each
+  kind, D = 3136, H = 512, A = 6, batch 1024) through the user's entry
+  points: the acting supersteps below the agent's own min fill, on past it
+  through the learn steps, then eval; returns the launch counts."""
   from dqn_zoo_torch import kernels
+  from dqn_zoo_torch.engine.superstep import leaves
   from dqn_zoo_torch.nets import IqnInputs, dqn_torso, iqn_head
   from dqn_zoo_torch.replay.device_replay import replay_size
   from dqn_zoo_torch.run.train import build_engine
@@ -435,9 +600,11 @@ def phase_iqn_path(dev):
                         replay_capacity=1_000_000, device="cuda")
   cfg, spec = engine.config, engine.spec
   min_fill = spec.min_replay_capacity_fraction * cfg.replay_capacity
-  if (spec.tau_samples_policy, spec.tau_latent_dim, spec.optimizer) != \
-      (64, 64, "adam") or min_fill / cfg.num_envs < 150:
-    fail(f"unexpected iqn spec {spec}")
+  if (spec.tau_samples_policy, spec.tau_samples_s_tm1, spec.tau_samples_s_t,
+      spec.tau_latent_dim, spec.optimizer) != (64, 64, 64, 64, "adam") or \
+      not 19_000 < min_fill <= 20_000 or \
+      (cfg.batch_size, cfg.learn_every, cfg.updates_per_learn) != (1024, 1, 1):
+    fail(f"unexpected iqn spec {spec} or schedule {cfg}")
   state = engine.init(seed=3)
   torch.cuda.synchronize()
   print(f"IQN_MAIN engine built: replay {cfg.num_envs}x"
@@ -462,7 +629,62 @@ def phase_iqn_path(dev):
   state = engine.run(state, fenced, timings=split)
   torch.cuda.synchronize()
   t_last = time.perf_counter() - t0
+  acting = warm + timed + fenced
+  acting_counts = kernels.counts()
+  size_acting = int(replay_size(state.replay))
+  if state.telemetry.learn_steps != 0:
+    fail(f"iqn took {state.telemetry.learn_steps} learn steps below its min "
+         "fill")
+  if not size_warm < size_acting < min_fill:
+    fail(f"iqn replay did not grow below its min fill: {size_warm} -> "
+         f"{size_acting}")
+  if acting_counts["iqn_head_fwd"] != acting:
+    fail(f"iqn_head_fwd launches: {acting_counts['iqn_head_fwd']} in "
+         f"{acting} acting supersteps")
+
+  # On past the min fill: supersteps until the first learn step, 5 more to
+  # warm the learn step up, then learning supersteps timed as they run and
+  # a fenced split. The online net's leaves are kept to see them move.
+  online_before = [p.detach().clone() for p in leaves(state.online_params)]
+  bridge = 0
+  while state.telemetry.learn_steps == 0:
+    if bridge > 60:
+      fail("iqn did not start learning within 60 supersteps past the acting "
+           "window")
+    state = engine.superstep(state)
+    bridge += 1
+  state = engine.run(state, 5)
+  torch.cuda.synchronize()
+  learn_timed, learn_fenced = 40, 20
+  steps_before = state.telemetry.learn_steps
+  counts_before = kernels.counts()
+  learn_resets = []
+  t0 = time.perf_counter()
+  for _ in range(learn_timed):
+    learn_resets.append(state.env.needs_reset.any())
+    state = engine.superstep(state)
+  torch.cuda.synchronize()
+  t_learn = time.perf_counter() - t0
+  counts_after = kernels.counts()
+  per_learning_superstep = {
+      k: (counts_after[k] - counts_before[k]) / learn_timed
+      for k in counts_after}
+  if state.telemetry.learn_steps - steps_before != learn_timed:
+    fail(f"{state.telemetry.learn_steps - steps_before} learn steps in "
+         f"{learn_timed} timed supersteps")
+  want = {"iqn_head_fwd_residuals": 1, "iqn_head_bwd_w": 1,
+          "iqn_head_bwd_d": 1, "gather_windows": 1,
+          "dqn_torso_fwd_residuals": 1, "pooled_frame_to_84": 1,
+          "iqn_head_fwd": 2, "dqn_torso_fwd": 2}
+  if per_learning_superstep != want:
+    fail(f"launches per iqn learning superstep {per_learning_superstep}, "
+         f"expected {want}")
+  learn_split = {}
+  state = engine.run(state, learn_fenced, timings=learn_split)
+  torch.cuda.synchronize()
   train_counts = kernels.counts()
+  supersteps = acting + bridge + 5 + learn_timed + learn_fenced
+
   estate = engine.eval_init(seed=4, num_envs=4)
   t0 = time.perf_counter()
   estate = engine.eval_run(state.online_params, estate, 100)
@@ -471,23 +693,42 @@ def phase_iqn_path(dev):
   counts = kernels.counts()
 
   m = engine.metrics(state)
-  supersteps = warm + timed + fenced
-  if m.learn_steps != 0:
-    fail(f"iqn took {m.learn_steps} learn steps below its min fill")
-  if not size_warm < m.replay_size:
-    fail(f"iqn replay did not grow: {size_warm} -> {m.replay_size}")
-  if train_counts["iqn_head_fwd"] != supersteps or \
-      counts["iqn_head_fwd"] != supersteps + 100:
+  if m.learn_steps < 20:
+    fail(f"only {m.learn_steps} iqn learn steps")
+  if not math.isfinite(m.last_loss):
+    fail(f"iqn loss is not finite: {m.last_loss}")
+  if m.replay_size < min_fill:
+    fail("iqn replay below its min fill after learning")
+  # Act once per superstep and the target net once per learn step.
+  if train_counts["iqn_head_fwd"] != supersteps + m.learn_steps or \
+      counts["iqn_head_fwd"] != train_counts["iqn_head_fwd"] + 100:
     fail(f"iqn_head_fwd launches: {train_counts['iqn_head_fwd']} in "
-         f"{supersteps} training supersteps, {counts['iqn_head_fwd']} with "
-         "the 100 eval supersteps")
+         f"{supersteps} training supersteps with {m.learn_steps} learn "
+         f"steps, {counts['iqn_head_fwd']} with the 100 eval supersteps")
+  for name in ("iqn_head_fwd_residuals", "iqn_head_bwd_w", "iqn_head_bwd_d",
+               "gather_windows", "dqn_torso_fwd_residuals"):
+    if counts[name] != m.learn_steps:
+      fail(f"kernel {name} was launched {counts[name]} times in "
+           f"{m.learn_steps} iqn learn steps")
   for name in PATH_KERNELS["iqn"]:
-    if train_counts[name] < supersteps or \
-        counts[name] - train_counts[name] < 100:
-      fail(f"kernel {name} was launched {counts[name]} times on the iqn "
-           "main path")
+    if counts[name] == 0:
+      fail(f"kernel {name} was not launched on the iqn main path")
+  for name in ("pooled_frame_to_84", "dqn_torso_fwd", "iqn_head_fwd"):
+    if counts[name] - train_counts[name] < 100:
+      fail(f"kernel {name} was launched {counts[name] - train_counts[name]} "
+           "times in the 100 iqn eval supersteps")
   if int(estate.env_frames) <= 0:
     fail("iqn eval ran no frames")
+  online_after = leaves(state.online_params)
+  moved = [float((a.detach() - b).abs().max())
+           for a, b in zip(online_after, online_before)]
+  if not all(bool(torch.isfinite(p).all()) for p in online_after) or \
+      min(moved) <= 0.0:
+    fail(f"iqn online parameters did not all move and stay finite: largest "
+         f"change per leaf {moved}")
+  if all(torch.equal(t, o.detach()) for t, o in
+         zip(leaves(state.target_params), online_after)):
+    fail("the iqn target net equals the online net between swaps")
 
   # Outputs (after the counts were read: this launches K3a and K4a once
   # more): the quantile values of the current observations through the
@@ -514,16 +755,28 @@ def phase_iqn_path(dev):
                              atol=1e-5)
 
   summary = dict(
-      window="acting only: no learn step below the min fill",
       supersteps=supersteps, learn_steps=m.learn_steps,
-      replay_size=m.replay_size, env_frames=m.env_frames,
-      timed_supersteps=timed,
+      last_loss=m.last_loss, replay_size=m.replay_size,
+      env_frames=m.env_frames,
+      acting_window="no learn step below the min fill",
+      acting_supersteps=acting, timed_supersteps=timed,
       ms_per_superstep=1e3 * t_timed / timed,
       acting_only_env_steps_per_s=timed * cfg.num_envs / t_timed,
       ms_per_superstep_last_100=1e3 * t_last / (timed + fenced),
       reset_supersteps_in_timed=int(torch.stack(resets).sum()),
       fenced_supersteps=fenced,
       split_ms_per_superstep={k: 1e3 * v / fenced for k, v in split.items()},
+      first_learn_step_at_superstep=acting + bridge,
+      learning_timed_supersteps=learn_timed,
+      ms_per_learning_superstep=1e3 * t_learn / learn_timed,
+      training_env_steps_per_s=learn_timed * cfg.num_envs / t_learn,
+      training_env_frames_per_s=4 * learn_timed * cfg.num_envs / t_learn,
+      reset_supersteps_in_learning_timed=int(torch.stack(learn_resets).sum()),
+      learning_fenced_supersteps=learn_fenced,
+      learning_split_ms_per_superstep={
+          k: 1e3 * v / learn_fenced for k, v in learn_split.items()},
+      launches_per_learning_superstep=per_learning_superstep,
+      largest_online_change=max(moved),
       eval_supersteps=100, eval_frames=int(estate.env_frames),
       eval_ms_per_superstep=1e3 * t_eval / 100,
       train_launches=train_counts,
@@ -555,9 +808,7 @@ def main() -> int:
   print(f"BUILD {time.perf_counter() - t0:.2f} s "
         f"{json.dumps(built)}", flush=True)
 
-  kernels.reset_counts()
   checks = phase_kernels(dev)
-  check_counts = kernels.counts()
   # Each engine holds a 7 GB frame store: one path's state is dropped
   # before the next is built.
   path_counts = {}
@@ -577,10 +828,7 @@ def main() -> int:
         bound_by=checks[name]["bound_by"],
         library_ms=checks[name]["library_ms"], shape=checks[name]["shape"],
         launches_by_path=by_path)
-    if name in KERNEL_CHECK_ONLY:
-      # On no main path yet: its launches are the kernel phase's.
-      entry.update(path="kernel_check_only", launches=check_counts[name])
-    elif not entry["launches"]:
+    if not entry["launches"]:
       fail(f"kernel {name} was launched on no main path")
     entries.append(entry)
   print(json.dumps({"kernels": entries}))

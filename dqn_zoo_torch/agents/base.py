@@ -18,7 +18,8 @@ class LossOutput(NamedTuple):
   priorities: torch.Tensor  # (B,) raw new priorities
 
 
-# loss(spec, network, online_params, target_params, batch, weights)
+# loss(spec, network, online_params, target_params, batch, weights
+#      [, tau_tm1, tau_sel, tau_t when spec.loss_takes_taus])
 LossFn = Callable[..., LossOutput]
 # act(spec, network, params, obs_u8, epsilon, explore_u, random_action
 #     [, taus (B, tau_samples_policy) when spec.act_takes_taus])
@@ -35,6 +36,11 @@ class AgentSpec:
   # The engine draws τ samples, U[0, 1) of shape (B, tau_samples_policy),
   # for every act and hands them to `act` as its last argument (IQN).
   act_takes_taus: bool = False
+  # The engine draws three τ sets for every update, U[0, 1) of shapes
+  # (batch, tau_samples_s_tm1), (batch, tau_samples_policy) and
+  # (batch, tau_samples_s_t), and hands them to `loss` as its last three
+  # arguments (IQN).
+  loss_takes_taus: bool = False
 
   # Replay (priority_exponent 0 → uniform replay).
   n_step: int = 1

@@ -5,7 +5,7 @@
 //   K4a `_fwd_call` -> `_fwd_kernel`
 // in two variants from this one source: forward only (acting, eval, target
 // nets: writes q) and with residuals (the online net under grad: also writes
-// the post-ReLU hidden h, which the backward kernels read).
+// the post-ReLU hidden h, which the backward reads: iqn_head_bwd.cu).
 //
 // For rows r = (stream, tau) pairs with tau minor, all in float32:
 //   te = relu(cos @ we + be)            (rows, D)   tau embedding

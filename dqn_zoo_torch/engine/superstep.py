@@ -12,7 +12,9 @@ B replay rows and runs gated SGD, in the reference's order:
      the agent's optimizer; target swap on frame-count boundary crossings.
 
 An agent whose actor takes τ samples (IQN: the fused head, kernel K4a) gets
-them from the draws too: `act_taus`, U[0, 1) of shape (B, τ samples).
+them from the draws too: `act_taus`, U[0, 1) of shape (B, τ samples). So
+does a loss that takes τ samples (IQN: K4a forward, K4b and K4c backward):
+`loss_taus`, three sets per update.
 
 The JAX engine scans supersteps inside one compiled program; here `run` is a
 Python loop over `superstep`, which reads two numbers back from the device
@@ -150,6 +152,9 @@ class SuperstepDraws(NamedTuple):
   env: EnvDraws
   # (B, tau_samples_policy) U[0,1), only for an agent whose act takes τ.
   act_taus: Optional[torch.Tensor] = None
+  # (tau_tm1, tau_sel, tau_t), each (updates, batch, n) U[0,1), only for an
+  # agent whose loss takes τ and only when learning.
+  loss_taus: Optional[tuple] = None
 
 
 def leaves(tree) -> List[torch.Tensor]:
@@ -239,12 +244,18 @@ class Engine:
     if self.spec.act_takes_taus:
       act_taus = torch.rand((env.batch_size, self.spec.tau_samples_policy),
                             generator=gen, device=self.device)
-    sample_u = None
+    sample_u = loss_taus = None
     if learn:
-      sample_u = torch.rand(
-          (self.config.updates_per_learn, self.config.batch_size),
-          generator=gen, device=self.device)
-    return SuperstepDraws(u, a, sample_u, env.draws(gen), act_taus)
+      shape = (self.config.updates_per_learn, self.config.batch_size)
+      sample_u = torch.rand(shape, generator=gen, device=self.device)
+      if self.spec.loss_takes_taus:
+        s = self.spec
+        loss_taus = tuple(
+            torch.rand(shape + (n,), generator=gen, device=self.device)
+            for n in (s.tau_samples_s_tm1, s.tau_samples_policy,
+                      s.tau_samples_s_t))
+    return SuperstepDraws(u, a, sample_u, env.draws(gen), act_taus,
+                          loss_taus)
 
   def _act(self, params, obs, epsilon, draws: SuperstepDraws):
     args = (self.spec, self.network, params, obs, epsilon, draws.explore_u,
@@ -255,10 +266,11 @@ class Engine:
 
   # --- learning --------------------------------------------------------------
 
-  def _sgd_update(self, replay, target, online, opt_state, sample_u):
+  def _sgd_update(self, replay, target, online, opt_state, sample_u,
+                  loss_taus=()):
     batch, _, weights = dr.replay_sample(self.rcfg, replay, sample_u)
     out = self.spec.loss(self.spec, self.network, online, target, batch,
-                         weights)
+                         weights, *loss_taus)
     params = leaves(online)
     grads = torch.autograd.grad(out.loss, params)
     self.optimizer.step(params, list(grads), opt_state)
@@ -318,8 +330,9 @@ class Engine:
     last_loss, nupd = tel.last_loss, 0
     if size >= min_fill and state.superstep % cfg.learn_every == 0:
       for u in range(cfg.updates_per_learn):
+        taus = tuple(t[u] for t in draws.loss_taus or ())
         last_loss = self._sgd_update(replay, state.target_params, online,
-                                     opt_state, draws.sample_u[u])
+                                     opt_state, draws.sample_u[u], taus)
       nupd = cfg.updates_per_learn
 
     # 7. target swap on frame-count boundary crossings.

@@ -1,27 +1,36 @@
-"""Kernel K4a: the fused IQN per-τ head forward on the card.
+"""Kernels K4a, K4b, K4c: the fused IQN per-τ head on the card.
 
-Port of dqn_zoo_tpu/nets/iqn_head.py (`iqn_head_fused`, forward half). The
-IQN network applies a shared value head to `tau_embedding * state_embedding`
-for every τ sample. For rows = (stream, τ) pairs with τ minor,
+Port of dqn_zoo_tpu/nets/iqn_head.py (`iqn_head_fused` and its custom VJP).
+The IQN network applies a shared value head to `tau_embedding *
+state_embedding` for every τ sample. For rows = (stream, τ) pairs with τ
+minor,
 
     te  = relu(cos_emb @ we + be)          # (rows, D)   τ embedding
     hi  = te * s_emb[row // S]             # (rows, D)   head input
     h   = relu(hi @ wh + bh)               # (rows, H)
     q   = h @ wo + bo                      # (rows, A)
 
-The CUDA source is csrc/iqn_head.cu, in two variants:
+K4a (csrc/iqn_head.cu) is the forward, in two variants:
   forward only (acting, eval and target nets, under no_grad): writes q;
-  with residuals (the online net under grad): also writes h, which the
-      backward kernels will read.
-In both, the two (rows, D) intermediates never reach device memory. The
-kernel indexes s_emb[row // S] directly, so it takes any B, S, A >= 1; the
+  with residuals (the online net under grad): also writes h.
+The backward (csrc/iqn_head_bwd.cu) follows the reference's `_iqn_head_bwd`:
+the wo-layer gradients dwo, dbo and dh = (dq @ woᵀ)·(h > 0) are plain ops on
+the saved h; then, from dh and the recomputed te and hi,
+  K4b `iqn_head_bwd_w`: dwh = hiᵀ @ dh, dbh = Σ_rows dh;
+  K4c `iqn_head_bwd_d`: dhi = dh @ whᵀ, ds_emb, dte, dwe, dbe and, when the
+      cosine features want a gradient, dcos.
+In all three the (rows, D) intermediates never reach device memory. The
+kernels index s_emb[row // S] directly, so they take any B, S, A >= 1; the
 latent width (64), the hidden width (512) and D a multiple of 32 are fixed
-by the source.
+by the sources.
 
-`iqn_head_plain` is the plain version, line for line the reference's
-`iqn_head_xla`, and differentiable by autograd. The backward kernels (dwh,
-dbh; dwe, dbe, ds_emb, dcos) are not ported yet: `iqn_head` on CUDA tensors
-under grad raises.
+`iqn_head_plain` is the forward's plain version, line for line the
+reference's `iqn_head_xla`, and differentiable by autograd.
+`iqn_head_bwd_w_plain` and `iqn_head_bwd_d_plain` write the two backward
+kernels' arithmetic out step by step (no autograd). `iqn_head` takes the
+plain version for CPU tensors only; on CUDA it launches K4a and, under grad,
+goes through the autograd Function `_IqnHead`, whose backward launches K4b
+and K4c.
 """
 
 from __future__ import annotations
@@ -39,6 +48,12 @@ FWD = kernels.register(kernels.Kernel(
     "iqn_head_fwd", "iqn_head.cu", "dz_iqn_head", _ARGS))
 FWD_RES = kernels.register(kernels.Kernel(
     "iqn_head_fwd_residuals", "iqn_head.cu", "dz_iqn_head", _ARGS))
+BWD_W = kernels.register(kernels.Kernel(
+    "iqn_head_bwd_w", "iqn_head_bwd.cu", "dz_iqn_head_bwd_w",
+    [kernels.P] * 7 + [kernels.I] * 4 + [kernels.P]))
+BWD_D = kernels.register(kernels.Kernel(
+    "iqn_head_bwd_d", "iqn_head_bwd.cu", "dz_iqn_head_bwd_d",
+    [kernels.P] * 12 + [kernels.I] * 4 + [kernels.P]))
 
 
 def iqn_head_plain_residuals(we, be, wh, bh, wo, bo, cos_emb, s_emb):
@@ -57,25 +72,26 @@ def iqn_head_plain(we, be, wh, bh, wo, bo, cos_emb, s_emb) -> torch.Tensor:
   return iqn_head_plain_residuals(we, be, wh, bh, wo, bo, cos_emb, s_emb)[0]
 
 
-def _check(we, be, wh, bh, wo, bo, cos_emb, s_emb) -> None:
-  """Raises ValueError on what the kernel does not take."""
-  if cos_emb.dim() != 3 or s_emb.dim() != 2 or wo.dim() != 2:
+def _dims(cos_emb, s_emb, a: int):
+  """(B, S, D) of a call; raises ValueError on what the kernels do not take."""
+  if cos_emb.dim() != 3 or s_emb.dim() != 2:
     raise ValueError(
-        "iqn_head takes cos_emb (B, S, latent), s_emb (B, D) and wo (H, A); "
-        f"got {tuple(cos_emb.shape)}, {tuple(s_emb.shape)}, "
-        f"{tuple(wo.shape)}.")
+        "iqn_head takes cos_emb (B, S, latent) and s_emb (B, D); got "
+        f"{tuple(cos_emb.shape)} and {tuple(s_emb.shape)}.")
   b, s, l = cos_emb.shape
-  d, a = s_emb.shape[1], wo.shape[1]
+  d = s_emb.shape[1]
   if l != LATENT or d % D_MULTIPLE or min(b, s, d, a) < 1 or \
       max(b * s * HIDDEN, b * d) >= 2**31:
     raise ValueError(
         f"iqn_head kernel: latent must be {LATENT}, D a multiple of "
         f"{D_MULTIPLE}, B, S, A >= 1 and B·S·{HIDDEN} < 2^31; got latent {l}, "
         f"D {d}, B {b}, S {s}, A {a}.")
-  shapes = {"we": (l, d), "be": (d,), "wh": (d, HIDDEN), "bh": (HIDDEN,),
-            "wo": (HIDDEN, a), "bo": (a,), "cos_emb": (b, s, l),
-            "s_emb": (b, d)}
-  tensors = dict(zip(shapes, (we, be, wh, bh, wo, bo, cos_emb, s_emb)))
+  return b, s, d
+
+
+def _check_tensors(tensors, shapes) -> None:
+  """Every tensor float32, of its shape, contiguous, 16-byte aligned and on
+  one CUDA device; raises ValueError otherwise."""
   for name, t in tensors.items():
     if t.dtype != torch.float32 or tuple(t.shape) != shapes[name]:
       raise ValueError(f"iqn_head {name}: need float32 of shape "
@@ -84,11 +100,38 @@ def _check(we, be, wh, bh, wo, bo, cos_emb, s_emb) -> None:
     if not t.is_contiguous() or t.data_ptr() % 16:
       raise ValueError(f"iqn_head {name}: need a contiguous, 16-byte "
                        "aligned tensor.")
-  dev = cos_emb.device
+  dev = tensors["cos_emb"].device
   for name, t in tensors.items():
     if t.device != dev or dev.type != "cuda":
       raise ValueError(f"iqn_head {name}: every tensor must lie on one CUDA "
                        f"device; got {t.device} beside cos_emb on {dev}.")
+
+
+def _check(we, be, wh, bh, wo, bo, cos_emb, s_emb) -> None:
+  """Raises ValueError on what the forward kernel does not take."""
+  if wo.dim() != 2:
+    raise ValueError(f"iqn_head takes wo (H, A); got {tuple(wo.shape)}.")
+  a = wo.shape[1]
+  b, s, d = _dims(cos_emb, s_emb, a)
+  shapes = {"we": (LATENT, d), "be": (d,), "wh": (d, HIDDEN),
+            "bh": (HIDDEN,), "wo": (HIDDEN, a), "bo": (a,),
+            "cos_emb": (b, s, LATENT), "s_emb": (b, d)}
+  _check_tensors(dict(zip(shapes, (we, be, wh, bh, wo, bo, cos_emb, s_emb))),
+                 shapes)
+
+
+def _check_bwd(we, be, wh, cos_emb, s_emb, dh):
+  """(B, S, D); raises ValueError on what the backward kernels do not take.
+  `wh` is None for K4b, which does not read it."""
+  b, s, d = _dims(cos_emb, s_emb, 1)
+  shapes = {"we": (LATENT, d), "be": (d,), "cos_emb": (b, s, LATENT),
+            "s_emb": (b, d), "dh": (b * s, HIDDEN)}
+  tensors = {"we": we, "be": be, "cos_emb": cos_emb, "s_emb": s_emb,
+             "dh": dh}
+  if wh is not None:
+    shapes["wh"], tensors["wh"] = (d, HIDDEN), wh
+  _check_tensors(tensors, shapes)
+  return b, s, d
 
 
 def iqn_head_forward(we, be, wh, bh, wo, bo, cos_emb, s_emb,
@@ -111,20 +154,160 @@ def iqn_head_forward(we, be, wh, bh, wo, bo, cos_emb, s_emb,
   return (q, h) if residuals else q
 
 
+# --- backward: plain versions --------------------------------------------------
+
+
+def iqn_head_bwd_w_plain(we, be, cos_emb, s_emb, dh):
+  """(dwh (D, H), dbh (H)) from dh (B·S, H), the cotangent of the hidden
+  pre-activation: the arithmetic of the reference's `_bwd_w_kernel`."""
+  b, s, l = cos_emb.shape
+  te = torch.relu(cos_emb.reshape(b * s, l) @ we + be)
+  hi = te * s_emb.repeat_interleave(s, dim=0)
+  return hi.t() @ dh, dh.sum(dim=0)
+
+
+def iqn_head_bwd_d_plain(we, be, wh, cos_emb, s_emb, dh,
+                         need_dcos: bool = True, te_mask=None):
+  """(dwe (latent, D), dbe (D), ds_emb (B, D), dcos (B, S, latent) or None)
+  from dh: the arithmetic of the reference's `_bwd_d_kernel`. `te_mask`
+  (B·S, D), when given, stands in for te_pre > 0 (a check hands in the
+  kernel's own branch bits, see csrc/iqn_head_bwd.cu)."""
+  b, s, l = cos_emb.shape
+  d = s_emb.shape[1]
+  cos2 = cos_emb.reshape(b * s, l)
+  te_pre = cos2 @ we + be
+  te = torch.relu(te_pre)
+  dhi = dh @ wh.t()
+  ds_emb = (dhi * te).reshape(b, s, d).sum(dim=1)
+  mask = te_pre > 0 if te_mask is None else te_mask.bool()
+  dte = torch.where(mask, dhi * s_emb.repeat_interleave(s, dim=0),
+                    torch.zeros_like(dhi))
+  dcos = (dte @ we.t()).reshape(b, s, l) if need_dcos else None
+  return cos2.t() @ dte, dte.sum(dim=0), ds_emb, dcos
+
+
+def iqn_head_plain_masked(we, be, wh, bh, wo, bo, cos_emb, s_emb, te_mask,
+                          h_mask):
+  """The plain head with given ReLU masks ((B·S, D) and (B·S, H)) in place
+  of its own: autograd through it is a reference for the kernels' gradients
+  that does not depend on which branch a pre-activation within f32 rounding
+  of 0 took."""
+  b, s, l = cos_emb.shape
+  d = s_emb.shape[1]
+  te = (cos_emb.reshape(b * s, l) @ we + be) * te_mask
+  hi = te.reshape(b, s, d) * s_emb[:, None, :]
+  h = (hi.reshape(b * s, d) @ wh + bh) * h_mask
+  return (h @ wo + bo).reshape(b, s, -1)
+
+
+# --- backward: the kernels -----------------------------------------------------
+
+
+def row_groups(b: int, s: int) -> int:
+  """Groups of streams the backward kernels' grids cut the rows into. One
+  block per 32 columns of D is 98 blocks at D = 3136; with 4 groups the 392
+  blocks fill a card of 132 SMs in three rounds. A group holds whole
+  streams and at least 1024 rows, so small shapes stay whole."""
+  return max(1, min(4, b, b * s // 1024))
+
+
+def _sums_and_partials(n: int, groups: int, dev):
+  """The kernels' walk-long sums as one run of n floats, and the scratch
+  for the groups' partials (None when the rows are not cut)."""
+  out = torch.empty((n,), dtype=torch.float32, device=dev)
+  part = torch.empty((groups, n), dtype=torch.float32,
+                     device=dev) if groups > 1 else None
+  return out, part
+
+
+def _ptr(t):
+  return None if t is None else t.data_ptr()
+
+
+def iqn_head_bwd_w(we, be, cos_emb, s_emb, dh):
+  """Launches K4b: (dwh (D, H), dbh (H)) from dh (B·S, H)."""
+  b, s, d = _check_bwd(we, be, None, cos_emb, s_emb, dh)
+  dev = cos_emb.device
+  groups = row_groups(b, s)
+  out, part = _sums_and_partials(d * HIDDEN + HIDDEN, groups, dev)
+  BWD_W.launch(cos_emb.data_ptr(), s_emb.data_ptr(), dh.data_ptr(),
+               we.data_ptr(), be.data_ptr(), out.data_ptr(), _ptr(part),
+               b, s, d, groups, kernels.stream_ptr(dev))
+  return out[:d * HIDDEN].view(d, HIDDEN), out[d * HIDDEN:]
+
+
+def iqn_head_bwd_d(we, be, wh, cos_emb, s_emb, dh, need_dcos: bool = True,
+                   return_te_mask: bool = False):
+  """Launches K4c: (dwe (latent, D), dbe (D), ds_emb (B, D), dcos (B, S,
+  latent) or None) from dh (B·S, H). dcos costs a scratch buffer of
+  (D / 32, B·S, latent) floats, summed over D by a small second kernel of
+  the same launch. With `return_te_mask` a fifth result is the kernel's own
+  te_pre > 0 as (B·S, D) uint8."""
+  b, s, d = _check_bwd(we, be, wh, cos_emb, s_emb, dh)
+  dev = cos_emb.device
+  new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+  groups = row_groups(b, s)
+  out, part = _sums_and_partials(LATENT * d + d, groups, dev)
+  ds_emb = new(b, d)
+  dcos = dcos_part = mask = None
+  if need_dcos:
+    dcos, dcos_part = new(b, s, LATENT), new(d // D_MULTIPLE, b * s, LATENT)
+  if return_te_mask:
+    mask = torch.empty((b * s, d), dtype=torch.uint8, device=dev)
+  BWD_D.launch(cos_emb.data_ptr(), s_emb.data_ptr(), dh.data_ptr(),
+               we.data_ptr(), be.data_ptr(), wh.data_ptr(), out.data_ptr(),
+               _ptr(part), ds_emb.data_ptr(), _ptr(dcos), _ptr(dcos_part),
+               _ptr(mask), b, s, d, groups, kernels.stream_ptr(dev))
+  res = (out[:LATENT * d].view(LATENT, d), out[LATENT * d:], ds_emb, dcos)
+  return res + (mask,) if return_te_mask else res
+
+
+def iqn_head_backward(we, be, wh, wo, cos_emb, s_emb, h, dq, bwd_w, bwd_d,
+                      need_dcos: bool = True):
+  """The reference's `_iqn_head_bwd`: gradients of the eight arguments (in
+  their order) from dq (B, S, A) and the saved h. The wo-layer gradients are
+  plain ops; `bwd_w` and `bwd_d` are the two kernels' wrappers or their plain
+  versions."""
+  b, s, _ = cos_emb.shape
+  dq2 = dq.reshape(b * s, -1)
+  dwo = h.t() @ dq2
+  dbo = dq2.sum(dim=0)
+  dh = (dq2 @ wo.t()) * (h > 0)
+  dwh, dbh = bwd_w(we, be, cos_emb, s_emb, dh)
+  dwe, dbe, ds_emb, dcos = bwd_d(we, be, wh, cos_emb, s_emb, dh,
+                                 need_dcos=need_dcos)
+  return dwe, dbe, dwh, dbh, dwo, dbo, dcos, ds_emb
+
+
+class _IqnHead(torch.autograd.Function):
+  """K4a with residuals forward; backward by the wo-layer's plain ops, then
+  K4b and K4c."""
+
+  @staticmethod
+  def forward(ctx, we, be, wh, bh, wo, bo, cos_emb, s_emb):
+    q, h = iqn_head_forward(we, be, wh, bh, wo, bo, cos_emb, s_emb,
+                            residuals=True)
+    ctx.save_for_backward(we, be, wh, wo, cos_emb, s_emb, h)
+    return q
+
+  @staticmethod
+  def backward(ctx, dq):
+    return iqn_head_backward(*ctx.saved_tensors, dq.contiguous(),
+                             iqn_head_bwd_w, iqn_head_bwd_d,
+                             need_dcos=ctx.needs_input_grad[6])
+
+
 def iqn_head(we, be, wh, bh, wo, bo, cos_emb, s_emb) -> torch.Tensor:
   """q (B, S, A) from cosine τ features and the torso embedding.
 
   CPU tensors take the plain version (differentiable by autograd). On CUDA
-  the kernel is launched, forward only; asking for a gradient raises until
-  the backward kernels are ported."""
+  the kernels are launched: K4a with residuals inside the autograd Function
+  (backward K4b and K4c) when a gradient is wanted, else K4a forward only."""
   args = (we, be, wh, bh, wo, bo, cos_emb, s_emb)
   if cos_emb.device.type == "cpu":
     return iqn_head_plain(*args)
   if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-    raise NotImplementedError(
-        "iqn_head under grad on CUDA: the backward kernels K4b (dwh, dbh) "
-        "and K4c (dwe, dbe, ds_emb, dcos) are not ported yet; call it under "
-        "torch.no_grad().")
+    return _IqnHead.apply(*args)
   return iqn_head_forward(*args, residuals=False)
 
 
@@ -137,3 +320,26 @@ def bound_counts(b: int, s: int, a: int, residuals: bool, d: int = 3136):
   if residuals:
     floats += rows * HIDDEN
   return 4 * floats, 2 * rows * (LATENT * d + d * HIDDEN + HIDDEN * a)
+
+
+def bound_counts_bwd_w(b: int, s: int, d: int = 3136):
+  """(bytes, flops) K4b must move and do: cos, s_emb, dh, we, be read once,
+  dwh and dbh written once; the te recompute and the dwh product."""
+  rows = b * s
+  floats = (rows * LATENT + b * d + rows * HIDDEN + LATENT * d + d
+            + d * HIDDEN + HIDDEN)
+  return 4 * floats, 2 * rows * (LATENT * d + d * HIDDEN)
+
+
+def bound_counts_bwd_d(b: int, s: int, need_dcos: bool, d: int = 3136):
+  """(bytes, flops) K4c must move and do: K4b's inputs and wh read once,
+  dwe, dbe, ds_emb (and dcos) written once; the te recompute and the dhi and
+  dwe products (and dcos's)."""
+  rows = b * s
+  floats = (rows * LATENT + b * d + rows * HIDDEN + LATENT * d + d
+            + d * HIDDEN + LATENT * d + d + b * d)
+  products = 2 * LATENT * d + d * HIDDEN
+  if need_dcos:
+    floats += rows * LATENT
+    products += LATENT * d
+  return 4 * floats, 2 * rows * products

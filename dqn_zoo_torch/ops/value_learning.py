@@ -1,4 +1,5 @@
-"""Value-learning losses (port of dqn_zoo_tpu/ops/value_learning.py:26-66)."""
+"""Value-learning losses (port of dqn_zoo_tpu/ops/value_learning.py:26-66,
+:115-145 and the batch forms of :148-155 for the ported agents)."""
 
 from __future__ import annotations
 
@@ -24,6 +25,13 @@ def clip_gradient(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
 
 def l2_loss(x: torch.Tensor) -> torch.Tensor:
   return 0.5 * torch.square(x)
+
+
+def huber_loss(x: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
+  abs_x = torch.abs(x)
+  quadratic = torch.clamp(abs_x, max=delta)
+  linear = abs_x - quadratic
+  return 0.5 * quadratic**2 + delta * linear
 
 
 def q_learning(q_tm1, a_tm1, r_t, discount_t, q_t):
@@ -52,3 +60,48 @@ def batch_double_q_learning(q_tm1, a_tm1, r_t, discount_t, q_t_value,
   target = r_t + discount_t * torch.gather(q_t_value, 1, a_t[:, None])[:, 0]
   picked = torch.gather(q_tm1, 1, a_tm1.long()[:, None])[:, 0]
   return target.detach() - picked
+
+
+def quantile_regression_loss(dist_src, tau_src, dist_target,
+                             huber_param: float = 0.0):
+  """Quantile-regression (Huber) loss between quantile estimates.
+
+  dist_src (..., n) with quantile midpoints tau_src (..., n); dist_target
+  (..., m), detached. Returns, per leading index, the sum over source
+  quantiles of the mean over target samples."""
+  dist_target = dist_target.detach()
+  delta = dist_target[..., None, :] - dist_src[..., :, None]  # (..., n, m)
+  indicator = (delta < 0.0).to(delta.dtype)
+  weight = torch.abs(tau_src[..., :, None] - indicator)
+  if huber_param == 0.0:
+    delta_loss = torch.abs(delta)
+  else:
+    delta_loss = huber_loss(delta, huber_param) / huber_param
+  return torch.sum(torch.mean(weight * delta_loss, dim=-1), dim=-1)
+
+
+def quantile_q_learning(dist_q_tm1, tau_q_tm1, a_tm1, r_t, discount_t,
+                        dist_q_t_selector, dist_q_t,
+                        huber_param: float = 0.0):
+  """One-sample quantile-distribution Q-learning (QR-DQN / IQN).
+
+  dist_* have shape (num_quantiles, num_actions); the selector
+  distribution's mean over τ picks the greedy next action, evaluated on
+  `dist_q_t`."""
+  dist_qa_tm1 = dist_q_tm1[:, a_tm1]
+  a_t = torch.argmax(torch.mean(dist_q_t_selector, dim=0))
+  target = r_t + discount_t * dist_q_t[:, a_t]
+  return quantile_regression_loss(dist_qa_tm1, tau_q_tm1, target, huber_param)
+
+
+def batch_quantile_q_learning(dist_q_tm1, tau_q_tm1, a_tm1, r_t, discount_t,
+                              dist_q_t_selector, dist_q_t,
+                              huber_param: float = 0.0):
+  """quantile_q_learning over a leading batch axis (the reference's vmap):
+  dist_* (B, quantiles, A), tau_q_tm1 (B, n), a_tm1, r_t, discount_t (B,)."""
+  pick = lambda dist, a: torch.gather(
+      dist, 2, a.long()[:, None, None].expand(-1, dist.shape[1], 1))[:, :, 0]
+  a_t = torch.argmax(torch.mean(dist_q_t_selector, dim=1), dim=-1)
+  target = r_t[:, None] + discount_t[:, None] * pick(dist_q_t, a_t)
+  return quantile_regression_loss(pick(dist_q_tm1, a_tm1), tau_q_tm1, target,
+                                  huber_param)

@@ -153,15 +153,121 @@ def test_k4a_wrapper_launches_or_raises(dev):
                       *args[3:])
   with pytest.raises(ValueError, match="float32"):
     iqn_head.iqn_head(*args[:6], args[6].double(), args[7])
-  # Under grad on the card it raises rather than run the plain version's
-  # autograd: the backward kernels are not ported yet.
+  # Under grad on the card it goes through the autograd Function: K4a with
+  # residuals, and no launch of the forward-only variant.
   args[2].requires_grad_(True)
-  with pytest.raises(NotImplementedError, match="K4b"):
-    iqn_head.iqn_head(*args)
+  before_res = iqn_head.FWD_RES.launches
+  q = iqn_head.iqn_head(*args)
+  assert q.requires_grad
+  assert iqn_head.FWD_RES.launches == before_res + 1
   assert iqn_head.FWD.launches == before
   with torch.no_grad():
     iqn_head.iqn_head(*args)
   assert iqn_head.FWD.launches == before + 1
+  assert iqn_head.FWD_RES.launches == before_res + 1
+
+
+def _rel(got, want):
+  return float(torch.linalg.vector_norm(got - want)
+               / torch.linalg.vector_norm(want))
+
+
+def _head_dh(dev, args, seed):
+  """dh as the backward makes it: (dq @ woᵀ) masked by K4a's own h > 0."""
+  b, s, _ = args[6].shape
+  with torch.no_grad():
+    _, h = iqn_head.iqn_head_forward(*args, residuals=True)
+    dq = torch.randn((b * s, args[4].shape[1]), generator=_gen(seed),
+                     device=dev)
+    return ((dq @ args[4].t()) * (h > 0)).contiguous()
+
+
+# (5, 512): two row groups of 2 and 3 streams; (128, 64): four; else one.
+@pytest.mark.parametrize("b,s,a", [(128, 64, 6), (4, 64, 6), (3, 24, 18),
+                                   (5, 512, 6)])
+def test_k4b_matches_plain(dev, b, s, a):
+  args = _head_inputs(dev, b, s, a, 10)
+  we, be, _, _, _, _, cos_emb, s_emb = args
+  dh = _head_dh(dev, args, 11)
+  before = iqn_head.BWD_W.launches
+  got = iqn_head.iqn_head_bwd_w(we, be, cos_emb, s_emb, dh)
+  torch.cuda.synchronize()
+  assert iqn_head.BWD_W.launches == before + 1
+  want = iqn_head.iqn_head_bwd_w_plain(we, be, cos_emb, s_emb, dh)
+  # f32 on both sides; the kernel sums over rows in row order, cuBLAS in
+  # another (TF32 is off).
+  for g, w in zip(got, want):
+    assert tuple(g.shape) == tuple(w.shape)
+    assert _rel(g, w) <= 1e-4
+    torch.testing.assert_close(g, w, rtol=1e-4,
+                               atol=1e-5 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("need_dcos", [True, False])
+@pytest.mark.parametrize("b,s,a", [(128, 64, 6), (4, 64, 6), (3, 24, 18),
+                                   (5, 512, 6)])
+def test_k4c_matches_plain(dev, b, s, a, need_dcos):
+  args = _head_inputs(dev, b, s, a, 12)
+  we, be, wh, _, _, _, cos_emb, s_emb = args
+  dh = _head_dh(dev, args, 13)
+  before = iqn_head.BWD_D.launches
+  *got, mask = iqn_head.iqn_head_bwd_d(we, be, wh, cos_emb, s_emb, dh,
+                                       need_dcos=need_dcos,
+                                       return_te_mask=True)
+  torch.cuda.synchronize()
+  assert iqn_head.BWD_D.launches == before + 1
+  assert (got[3] is not None) == need_dcos
+  # The plain version takes the kernel's own te_pre > 0 bits: an entry
+  # within f32 rounding of 0 may take the other branch there and move dte by
+  # a whole term (chip_smoke.py counts them).
+  want = iqn_head.iqn_head_bwd_d_plain(we, be, wh, cos_emb, s_emb, dh,
+                                       need_dcos=need_dcos, te_mask=mask)
+  te_pre = cos_emb.reshape(b * s, -1) @ we + be
+  assert int((mask.bool() != (te_pre > 0)).sum()) <= 8
+  for g, w in zip(got, want):
+    if w is None:
+      continue
+    assert tuple(g.shape) == tuple(w.shape)
+    assert _rel(g, w) <= 1e-4
+    torch.testing.assert_close(g, w, rtol=1e-4,
+                               atol=1e-5 * float(w.abs().max()))
+
+
+def test_k4_function_gradients_match_plain(dev):
+  """All eight gradients through the autograd Function (K4a with residuals,
+  the wo-layer's plain ops, K4b, K4c) against autograd of the plain head
+  with the kernels' own ReLU bits."""
+  b, s, a = 16, 64, 6
+  args = _head_inputs(dev, b, s, a, 14)
+  dq = torch.randn((b, s, a), generator=_gen(15), device=dev)
+  counters = (iqn_head.FWD_RES, iqn_head.BWD_W, iqn_head.BWD_D)
+  before = [k.launches for k in counters]
+  pa = [t.clone().requires_grad_(True) for t in args]
+  ga = torch.autograd.grad((iqn_head.iqn_head(*pa) * dq).sum(), pa)
+  torch.cuda.synchronize()
+  assert [k.launches for k in counters] == [n + 1 for n in before]
+  we, be, wh, _, wo, _, cos_emb, s_emb = args
+  with torch.no_grad():
+    _, h = iqn_head.iqn_head_forward(*args, residuals=True)
+    dh = ((dq.reshape(b * s, a) @ wo.t()) * (h > 0)).contiguous()
+    mask = iqn_head.iqn_head_bwd_d(we, be, wh, cos_emb, s_emb, dh,
+                                   need_dcos=False, return_te_mask=True)[-1]
+  pb = [t.clone().requires_grad_(True) for t in args]
+  gb = torch.autograd.grad(
+      (iqn_head.iqn_head_plain_masked(*pb, mask.float(), (h > 0).float())
+       * dq).sum(), pb)
+  for u, v in zip(ga, gb):
+    assert tuple(u.shape) == tuple(v.shape)
+    assert _rel(u, v) <= 1e-4
+
+
+def test_k4_function_skips_dcos_when_the_features_want_no_gradient(dev):
+  args = _head_inputs(dev, 4, 8, 6, 16)
+  pa = [t.clone().requires_grad_(i < 6) for i, t in enumerate(args)]
+  q = iqn_head.iqn_head(*pa)
+  grads = torch.autograd.grad(q.sum(), pa[:6])
+  torch.cuda.synchronize()
+  assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
@@ -182,7 +288,7 @@ def test_every_kernel_builds(dev):
   kernels.build_all()
   sources = {k.source for k in kernels.REGISTRY.values()}
   assert sources == {"window_gather.cu", "pooled_frame_to_84.cu",
-                     "dqn_torso.cu", "iqn_head.cu"}
+                     "dqn_torso.cu", "iqn_head.cu", "iqn_head_bwd.cu"}
   assert sources == {p.name for p in kernels.CSRC.glob("*.cu")}
   for k in kernels.REGISTRY.values():
     assert k._func() is not None

@@ -1,8 +1,9 @@
-"""Differential tests of the port's iqn/pong acting and eval path (CPU).
+"""Differential tests of the port's iqn/pong acting and eval path (CPU); the
+learn step's are in test_torch_iqn_learn.py.
 
 The fused IQN head's plain version against the reference's XLA oracle and
-its Pallas kernel in interpret mode (forward, and gradients as the reference
-for the backward kernels still to come), the IQN network, Adam against
+its Pallas kernel in interpret mode (forward, and gradients by autograd, the
+reference the backward kernels are held to), the IQN network, Adam against
 optax.adam, the optimizer-state converter, iqn_act, and several supersteps
 and eval supersteps of both engines from one JAX state carried across by
 dqn_zoo_torch.convert. Inputs come from numpy seeds; JAX's random draws are
@@ -264,7 +265,8 @@ def _act_draws(act_key, b, num_taus, num_actions=6):
 def test_iqn_spec_has_the_jax_values():
   jspec, tspec = jget_agent("iqn"), get_agent("iqn")
   for f in dataclasses.fields(tspec):
-    if f.name in ("make_network", "loss", "act", "act_takes_taus"):
+    if f.name in ("make_network", "loss", "act", "act_takes_taus",
+                  "loss_takes_taus"):
       continue
     assert getattr(tspec, f.name) == getattr(jspec, f.name), f.name
   assert tspec.act_takes_taus and not get_agent("dqn").act_takes_taus
@@ -291,20 +293,15 @@ def test_iqn_act_matches_jax(epsilon):
   assert not values.requires_grad
 
 
-def test_iqn_loss_raises_until_the_backward_kernels_are_ported():
-  spec = get_agent("iqn")
-  with pytest.raises(NotImplementedError, match="K4b.*K4c.*quantile"):
-    spec.loss(spec, None, None, None, None, None)
-
-
 # --- the slice: several supersteps of both engines ------------------------------
 
 
-def _engines(num_envs=4):
-  # 8 policy taus keep the test small; a min fill out of reach keeps both
-  # engines on the acting path (the port's iqn loss raises).
-  overrides = dict(tau_samples_policy=8, tau_samples_s_tm1=8,
-                   tau_samples_s_t=8, min_replay_capacity_fraction=2.0)
+def _engines(num_envs=4, min_replay_capacity_fraction=2.0, **overrides):
+  # 8 taus of each kind keep the tests small; the default min fill is out
+  # of reach and keeps both engines on the acting path.
+  overrides.update(
+      tau_samples_policy=8, tau_samples_s_tm1=8, tau_samples_s_t=8,
+      min_replay_capacity_fraction=min_replay_capacity_fraction)
   jspec = dataclasses.replace(jget_agent("iqn"), **overrides)
   tspec = dataclasses.replace(get_agent("iqn"), **overrides)
   common = dict(game="pong", num_envs=num_envs, slots_per_stream=16,
@@ -421,8 +418,3 @@ def test_cli_iqn_acts_and_evaluates_below_its_min_fill(tmp_path):
   _cli(tmp_path, "--replay_capacity=4000")  # min fill 80 rows, 16 inserted
   rows = (tmp_path / "r.csv").read_text().strip().splitlines()
   assert len(rows) == 3  # header, iteration 0 (eval only), iteration 1
-
-
-def test_cli_iqn_raises_at_its_first_learn_step(tmp_path):
-  with pytest.raises(NotImplementedError, match="K4b"):
-    _cli(tmp_path, "--replay_capacity=64")

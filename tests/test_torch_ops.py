@@ -77,6 +77,77 @@ def test_clip_gradient_and_l2_match_jax():
   np.testing.assert_array_equal(tx.grad.numpy(), np.asarray(jg))
 
 
+def test_huber_loss_matches_jax():
+  x = np.linspace(-3, 3, 25).astype(np.float32)
+  for delta in (1.0, 0.5):
+    np.testing.assert_allclose(
+        ops.huber_loss(torch.from_numpy(x), delta).numpy(),
+        np.asarray(jops.huber_loss(jnp.asarray(x), delta)), rtol=1e-6)
+
+
+@pytest.mark.parametrize("huber_param", [0.0, 1.0])
+def test_quantile_regression_loss_matches_jax(huber_param):
+  rng = np.random.RandomState(5)
+  src = rng.randn(9).astype(np.float32)
+  tau = rng.uniform(size=9).astype(np.float32)
+  tgt = rng.randn(7).astype(np.float32)
+  want, jg = jax.value_and_grad(
+      lambda d: jops.quantile_regression_loss(d, tau, tgt, huber_param))(src)
+  tsrc = torch.from_numpy(src).requires_grad_(True)
+  ttgt = torch.from_numpy(tgt).requires_grad_(True)
+  got = ops.quantile_regression_loss(tsrc, torch.from_numpy(tau), ttgt,
+                                     huber_param)
+  assert got.dim() == 0
+  np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-5)
+  g_src, g_tgt = torch.autograd.grad(got, [tsrc, ttgt], allow_unused=True)
+  np.testing.assert_allclose(g_src.numpy(), np.asarray(jg), rtol=1e-5,
+                             atol=1e-7)
+  assert g_tgt is None  # the target is detached
+
+
+@pytest.mark.parametrize("huber_param", [0.0, 1.0])
+def test_batch_quantile_q_learning_matches_jax(huber_param):
+  rng = np.random.RandomState(6)
+  b, n, m, a = 5, 8, 6, 4
+  dist_tm1 = rng.randn(b, n, a).astype(np.float32)
+  tau = rng.uniform(size=(b, n)).astype(np.float32)
+  a_tm1 = rng.randint(0, a, b).astype(np.int32)
+  r = rng.choice([-1.0, 0.0, 1.0], b).astype(np.float32)
+  disc = (0.99 * rng.randint(0, 2, b)).astype(np.float32)
+  dist_sel = rng.randn(b, 7, a).astype(np.float32)
+  dist_t = rng.randn(b, m, a).astype(np.float32)
+  fn = lambda d: jops.batch_quantile_q_learning(
+      d, tau, a_tm1, r, disc, dist_sel, dist_t, huber_param)
+  want = fn(dist_tm1)
+  jg = jax.grad(lambda d: jnp.sum(fn(d) * jnp.arange(1.0, b + 1)))(dist_tm1)
+  t = lambda x: torch.as_tensor(np.array(x))
+  td = t(dist_tm1).requires_grad_(True)
+  got = ops.batch_quantile_q_learning(td, t(tau), t(a_tm1), t(r), t(disc),
+                                      t(dist_sel), t(dist_t), huber_param)
+  assert tuple(got.shape) == (b,)
+  np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                             rtol=1e-5)
+  (g,) = torch.autograd.grad((got * torch.arange(1.0, b + 1)).sum(), [td])
+  np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=1e-5, atol=1e-7)
+  # One sample through the unbatched function is the batch's entry.
+  one = ops.quantile_q_learning(t(dist_tm1[2]), t(tau[2]), int(a_tm1[2]),
+                                t(r[2]), t(disc[2]), t(dist_sel[2]),
+                                t(dist_t[2]), huber_param)
+  np.testing.assert_allclose(float(one), float(want[2]), rtol=1e-5)
+
+
+def test_quantile_q_learning_selects_by_the_mean_over_tau():
+  """The selector's mean over its tau axis picks a_t, not any one sample."""
+  sel = torch.tensor([[5.0, 0.0], [-9.0, 0.0], [1.0, 0.0]])  # mean: -1, 0
+  dist_t = torch.tensor([[100.0, 2.0], [100.0, 4.0]])
+  src = torch.zeros((1, 2))
+  tau = torch.full((1,), 0.5)
+  got = ops.quantile_q_learning(src, tau, 0, torch.tensor(1.0),
+                                torch.tensor(0.5), sel, dist_t, 0.0)
+  # targets 1 + 0.5 * {2, 4} = {2, 3}; |delta| weighted by 0.5: mean 1.25.
+  np.testing.assert_allclose(float(got), 1.25, rtol=1e-6)
+
+
 def _jax_dqn_params(seed=0):
   spec = jget_agent("dqn")
   net = spec.make_network(spec, 6)

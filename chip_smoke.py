@@ -4,7 +4,8 @@
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. build every CUDA kernel from dqn_zoo_torch/csrc (one nvcc per source,
-     all in parallel) and print the build time;
+     all in parallel) and print the build time and what `-Xptxas -v` says
+     of each kernel (registers, shared memory, spills);
   2. hold each kernel against its plain PyTorch version at the main paths'
      shapes, and time kernel, plain version, library call and bound;
   3. drive the first main path — build_engine("dqn", "pong", num_envs=128,
@@ -30,6 +31,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -37,9 +39,13 @@ import time
 import torch
 
 # Published peaks of one H100 SXM at its 700 W limit (dense, no sparsity):
-# HBM3 bandwidth and float32 outside the tensor cores.
+# HBM3 bandwidth, float32 outside the tensor cores, and TF32 on them. An
+# f32-accurate product on the tensor cores takes three TF32 products
+# (3xTF32), so 3 * flops / PEAK_TF32_FLOPS is the least time the card could
+# take for f32-accurate work: `bound_3xtf32_ms`, beside `bound_ms` at f32.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 # Input sets a memory-bound kernel's timing rotates through (see time_ms).
 ROTATE = 8
 
@@ -97,10 +103,63 @@ def time_ms(fn, sets=((),), iters: int = 20, warmup: int = 3) -> float:
   return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, sets=((),), reps: int = 5) -> float:
+  """Mean device milliseconds per call with the host out of the way: the
+  calls (each set in `sets` twice) are captured once into a CUDA graph,
+  which is replayed `reps` times between CUDA events. For a kernel of tens
+  of microseconds whose wrapper's own host time comes close to it, this
+  separates the kernel from its launch cost; `time_ms` keeps both."""
+  for args in sets:
+    fn(*args)
+  torch.cuda.synchronize()
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    for args in list(sets) * 2:
+      fn(*args)
+  graph.replay()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  for _ in range(reps):
+    graph.replay()
+  end.record()
+  torch.cuda.synchronize()
+  return start.elapsed_time(end) / (reps * 2 * len(sets))
+
+
 def bound(nbytes: float, flops: float):
   t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
   t_ops = flops / PEAK_F32_FLOPS * 1e3
   return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_3xtf32(nbytes: float, flops: float):
+  """The larger of the byte time and 3 * flops at the TF32 peak, for a
+  kernel bound by operations at f32; None for one bound by bytes."""
+  if bound(nbytes, flops)[1] != "operations":
+    return None
+  return max(nbytes / PEAK_BYTES_PER_S, 3 * flops / PEAK_TF32_FLOPS) * 1e3
+
+
+def ptxas_report(log: str):
+  """[{function, registers, static_smem_bytes, spill_stores, spill_loads}]
+  from nvcc's `-Xptxas -v` output."""
+  out, name, spills = [], None, (0, 0)
+  for line in log.splitlines():
+    m = re.search(r"Compiling entry function '(\S+)'", line)
+    if m:
+      name = m.group(1)
+    m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+    if m:
+      spills = (int(m.group(1)), int(m.group(2)))
+    m = re.search(r"Used (\d+) registers", line)
+    if m and name:
+      smem = re.search(r"(\d+) bytes smem", line)
+      out.append(dict(function=name, registers=int(m.group(1)),
+                      static_smem_bytes=int(smem.group(1)) if smem else 0,
+                      spill_stores=spills[0], spill_loads=spills[1]))
+      name, spills = None, (0, 0)
+  return out
 
 
 def phase_kernels(dev):
@@ -121,11 +180,15 @@ def phase_kernels(dev):
     line = dict(name=name, shape=shape, max_abs_err=err, tolerance=tol,
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=b_ms, bound_by=b_by, **extra)
+    tc = bound_3xtf32(nbytes, flops)
+    if tc is not None:
+      line["bound_3xtf32_ms"] = tc
     print("KERNEL_CHECK " + json.dumps(line), flush=True)
     return line
 
   # K1: B = 1024 windows of W = 5 rows from 128 streams. Exact. Timing
-  # rotates through 8 index sets, 289 MB of rows from a 1.85 GB store.
+  # rotates through 8 index sets, 289 MB of rows from a 1.85 GB store; the
+  # indices are int64, as the replay's sample path hands them in.
   b, w, s, r = 1024, 5, 128, 2048
   frames = torch.randint(0, 256, (s, r, 84, 84), generator=gen, device=dev,
                          dtype=torch.uint8)
@@ -142,13 +205,14 @@ def phase_kernels(dev):
     want = twg.gather_windows_plain(frames, stream, start, w)
     if not torch.equal(got, want):
       fail("K1 gather_windows differs from its plain version")
+  kernel = lambda st, sa, _: twg.gather_windows(frames, st, sa, w)
+  library = lambda _, __, rw: torch.index_select(flat, 0, rw)
   results["gather_windows"] = report(
-      "gather_windows", f"B={b} W={w}", 0.0, "exact",
-      time_ms(lambda st, sa, _: twg.gather_windows(frames, st, sa, w), sets),
+      "gather_windows", f"B={b} W={w}", 0.0, "exact", time_ms(kernel, sets),
       time_ms(lambda st, sa, _: twg.gather_windows_plain(frames, st, sa, w),
               sets),
-      time_ms(lambda _, __, rw: torch.index_select(flat, 0, rw), sets),
-      2 * b * w * 84 * 84 + 8 * b, 0)
+      time_ms(library, sets), 2 * b * w * 84 * 84 + 8 * b, 0,
+      graph_ms=graph_ms(kernel, sets), library_graph_ms=graph_ms(library, sets))
   del frames, flat, sets
 
   # K2: B = 128 env frame pairs, 8 sets (206 MB) for the timing; one
@@ -275,7 +339,9 @@ def phase_kernels(dev):
   # (B, S, A, residuals, role): act and eval shapes of the iqn main path, a
   # ragged shape, and the learn step's shapes (online net with residuals,
   # target net with selector and target taus concatenated), timed over 5
-  # launches.
+  # launches. `splits` is how many blocks share D per row tile (more than 1
+  # where the row tiles alone would leave the card idle); a second launch
+  # at the same shape must give the same bits.
   shapes = [(128, 64, 6, False, "act"), (128, 64, 6, True, "act"),
             (4, 64, 6, False, "eval"), (4, 64, 6, True, "eval"),
             (3, 24, 18, False, "ragged"), (3, 24, 18, True, "ragged"),
@@ -293,6 +359,11 @@ def phase_kernels(dev):
         got_q = iqn_head.iqn_head_forward(*args, residuals=False)
         extra = {}
       torch.testing.assert_close(got_q, want_q, rtol=1e-4, atol=1e-5)
+      again = iqn_head.iqn_head_forward(*args, residuals=res)
+      if not torch.equal(again[0] if res else again, got_q) or \
+          (res and not torch.equal(again[1], got_h)):
+        fail(f"K4a at B={b} S={s}: two launches differ")
+      del again
       err = float((got_q - want_q).abs().max())
       iters = 5 if role.startswith("learn") else 20
       name = "iqn_head_fwd_residuals" if res else "iqn_head_fwd"
@@ -304,7 +375,7 @@ def phase_kernels(dev):
           time_ms(lambda: iqn_head.iqn_head_plain_residuals(*args),
                   iters=iters),
           time_ms(lambda: head_library(*args), iters=iters), nbytes, flops,
-          role=role, **extra)
+          role=role, splits=iqn_head.d_splits(b, s), **extra)
       # The kernels line takes each variant at the shape its path gives it:
       # q only when acting, q and h for the online net of the learn step.
       if role == ("learn_online" if res else "act"):
@@ -807,6 +878,8 @@ def main() -> int:
     k._func()
   print(f"BUILD {time.perf_counter() - t0:.2f} s "
         f"{json.dumps(built)}", flush=True)
+  for source, log in sorted(kernels.BUILD_LOG.items()):
+    print(f"PTXAS {source} {json.dumps(ptxas_report(log))}", flush=True)
 
   checks = phase_kernels(dev)
   # Each engine holds a 7 GB frame store: one path's state is dropped
@@ -828,6 +901,8 @@ def main() -> int:
         bound_by=checks[name]["bound_by"],
         library_ms=checks[name]["library_ms"], shape=checks[name]["shape"],
         launches_by_path=by_path)
+    if "bound_3xtf32_ms" in checks[name]:
+      entry["bound_3xtf32_ms"] = checks[name]["bound_3xtf32_ms"]
     if not entry["launches"]:
       fail(f"kernel {name} was launched on no main path")
     entries.append(entry)

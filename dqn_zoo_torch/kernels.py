@@ -7,6 +7,9 @@ into `.torch_kernels/` at the root of the checkout; a library's file name
 carries the hash of its source and of the nvcc flags, so an edited source is
 rebuilt and an unchanged one is reused.
 
+`-Xptxas -v` is among the flags: each build's compiler output (registers,
+shared memory and spills of every kernel) is kept in `BUILD_LOG`.
+
 Every kernel wrapper owns a `Kernel` whose `launches` counter goes up by one
 where the wrapper launches the kernel and nowhere else, so a run can show
 that its main path went through the kernels.
@@ -28,10 +31,11 @@ _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / ".torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+BUILD_LOG: Dict[str, str] = {}  # source -> nvcc's output, for those built
 
 
 def find_nvcc() -> str:
@@ -70,6 +74,7 @@ def build_all(sources=None) -> Dict[str, float]:
   for s, (tmp, p) in procs.items():
     out, _ = p.communicate()
     took[s] = time.monotonic() - t0
+    BUILD_LOG[s] = out
     if p.returncode != 0:
       failed.append(f"{s}:\n{out}")
       continue
@@ -134,8 +139,14 @@ def counts() -> Dict[str, int]:
 
 
 def stream_ptr(device) -> int:
+  """The raw pointer of the current CUDA stream of `device` (a CUDA tensor's
+  device, which carries its index). Cheaper on the host than
+  `torch.cuda.current_stream(device).cuda_stream`, which builds a Stream
+  object on every call."""
   import torch
-  return torch.cuda.current_stream(device).cuda_stream
+  index = device.index if device.index is not None else \
+      torch.cuda.current_device()
+  return torch._C._cuda_getCurrentRawStream(index)
 
 
 P = ctypes.c_void_p

@@ -13,6 +13,9 @@ minor,
 K4a (csrc/iqn_head.cu) is the forward, in two variants:
   forward only (acting, eval and target nets, under no_grad): writes q;
   with residuals (the online net under grad): also writes h.
+Its products run on the tensor cores in 3xTF32. Where the row tiles alone
+leave the card idle (eval, B = 4), D is split over blocks as well
+(`d_splits`) and a second kernel of the same launch adds the partials.
 The backward (csrc/iqn_head_bwd.cu) follows the reference's `_iqn_head_bwd`:
 the wo-layer gradients dwo, dbo and dh = (dq @ woᵀ)·(h > 0) are plain ops on
 the saved h; then, from dh and the recomputed te and hi,
@@ -42,8 +45,10 @@ from dqn_zoo_torch import kernels
 LATENT = 64  # cosine features per τ sample (kL in the source)
 HIDDEN = 512  # hidden width (kH)
 D_MULTIPLE = 32  # the source walks D in chunks of 32 (kKC)
+ROWS_PER_BLOCK = 64  # rows of one forward block (kM)
+SMS = 132  # streaming multiprocessors of an H100 SXM
 
-_ARGS = [kernels.P] * 10 + [kernels.I] * 5 + [kernels.P]
+_ARGS = [kernels.P] * 11 + [kernels.I] * 7 + [kernels.P]
 FWD = kernels.register(kernels.Kernel(
     "iqn_head_fwd", "iqn_head.cu", "dz_iqn_head", _ARGS))
 FWD_RES = kernels.register(kernels.Kernel(
@@ -134,10 +139,30 @@ def _check_bwd(we, be, wh, cos_emb, s_emb, dh):
   return b, s, d
 
 
+def d_splits(b: int, s: int, d: int = 3136) -> int:
+  """Runs of whole 32-column chunks that K4a cuts D into, one block each,
+  beside the row tiles of 64 rows. 1 where the tiles alone fill a card of
+  132 SMs to one block each as well as a split would (more than 66 tiles:
+  the act shape B = 128 and both learn shapes); else as many as keep tiles
+  × splits within 132 (33 at B = 4, S = 64; 49 at B = 3, S = 24)."""
+  tiles = -(-b * s // ROWS_PER_BLOCK)
+  chunks = d // D_MULTIPLE
+  per = -(-chunks // max(1, SMS // tiles))
+  return -(-chunks // per)
+
+
+def chunks_per_split(splits: int, d: int = 3136) -> int:
+  """Chunks each split walks; the last may walk fewer, and none walks
+  none."""
+  return -(-(d // D_MULTIPLE) // splits)
+
+
 def iqn_head_forward(we, be, wh, bh, wo, bo, cos_emb, s_emb,
                      residuals: bool):
   """Launches K4a: returns q (B, S, A), or (q, h (B·S, H)) with residuals.
-  Takes no gradient: the tensors' autograd history is not followed."""
+  Takes no gradient: the tensors' autograd history is not followed. With
+  `d_splits` > 1 the blocks' partials of hi @ wh go through a scratch
+  buffer of (splits, B·S, H) floats."""
   _check(we, be, wh, bh, wo, bo, cos_emb, s_emb)
   b, s, _ = cos_emb.shape
   d, a = s_emb.shape[1], wo.shape[1]
@@ -145,12 +170,15 @@ def iqn_head_forward(we, be, wh, bh, wo, bo, cos_emb, s_emb,
   q = torch.empty((b, s, a), dtype=torch.float32, device=dev)
   h = torch.empty((b * s, HIDDEN), dtype=torch.float32,
                   device=dev) if residuals else None
+  splits = d_splits(b, s, d)
+  part = torch.empty((splits, b * s, HIDDEN), dtype=torch.float32,
+                     device=dev) if splits > 1 else None
   kernel = FWD_RES if residuals else FWD
   kernel.launch(cos_emb.data_ptr(), s_emb.data_ptr(), we.data_ptr(),
                 be.data_ptr(), wh.data_ptr(), bh.data_ptr(), wo.data_ptr(),
-                bo.data_ptr(), q.data_ptr(),
-                h.data_ptr() if residuals else None, b, s, d, a,
-                int(residuals), kernels.stream_ptr(dev))
+                bo.data_ptr(), q.data_ptr(), _ptr(h), _ptr(part), b, s, d, a,
+                int(residuals), splits, chunks_per_split(splits, d),
+                kernels.stream_ptr(dev))
   return (q, h) if residuals else q
 
 

@@ -6,8 +6,10 @@ K + n consecutive ring rows; one contiguous window per sample covers both.
 
 Rows are stored unpadded, (S, C+W, 84, 84) uint8: the JAX package padded
 them to (64, 128) for the TPU's DMA tiling, but 7056 bytes is already a
-multiple of 16, which is all the card's 16-byte loads need. The CUDA source
-is csrc/window_gather.cu; `gather_windows_plain` is its plain version.
+multiple of 16, which is all the card's bulk copies need. The CUDA source
+is csrc/window_gather.cu; `gather_windows_plain` is its plain version. The
+kernel reads int64 or int32 indices as they are, so a call on the card is
+one launch.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from dqn_zoo_torch import kernels
 
 KERNEL = kernels.register(kernels.Kernel(
     "gather_windows", "window_gather.cu", "dz_gather_windows",
-    [kernels.P] * 4 + [kernels.I] * 5 + [kernels.P]))
+    [kernels.P] * 4 + [kernels.I] * 6 + [kernels.P]))
 
 
 def gather_windows_plain(frames: torch.Tensor, stream: torch.Tensor,
@@ -39,30 +41,38 @@ def gather_windows(frames: torch.Tensor, stream: torch.Tensor,
                    start: torch.Tensor, window: int) -> torch.Tensor:
   """Same contract as gather_windows_plain.
 
-  CPU tensors take the plain version; CUDA tensors launch K1 or raise."""
-  if frames.device.type == "cpu":
+  CPU tensors take the plain version; CUDA tensors launch K1 or raise. The
+  indices reach the kernel as they are: int64 (the replay's sample path) or
+  int32, both of one type."""
+  dev = frames.device
+  if dev.type == "cpu":
     return gather_windows_plain(frames, stream, start, window)
-  if frames.device.type != "cuda" or frames.dtype != torch.uint8 or \
-      frames.dim() != 4 or not frames.is_contiguous():
+  if dev.type != "cuda" or frames.dtype != torch.uint8 or \
+      frames.dim() != 4 or not frames.is_contiguous() or \
+      frames.data_ptr() % 16:
     raise ValueError(
-        "gather_windows takes a contiguous uint8 CUDA frame store of shape "
-        f"(S, R, H, W); got {frames.dtype} {tuple(frames.shape)} on "
-        f"{frames.device}.")
+        "gather_windows takes a contiguous, 16-byte aligned uint8 CUDA frame "
+        f"store of shape (S, R, H, W); got {frames.dtype} "
+        f"{tuple(frames.shape)} on {dev}.")
   s, r, h, w = frames.shape
   row_bytes = h * w
   if row_bytes % 16 != 0 or not 0 < window <= r:
     raise ValueError(f"rows of {row_bytes} bytes (need a multiple of 16) or "
                      f"window {window} outside (0, {r}].")
-  if stream.shape != start.shape or stream.dim() != 1:
-    raise ValueError("stream and start must be (B,) tensors.")
-  for t in (stream, start):
-    if t.device != frames.device:
-      raise ValueError("indices must be on the frame store's device.")
-  st = stream.to(torch.int32).contiguous()
-  s0 = start.to(torch.int32).contiguous()
-  b = st.shape[0]
-  out = torch.empty((b, window, h, w), dtype=torch.uint8, device=frames.device)
-  KERNEL.launch(frames.data_ptr(), st.data_ptr(), s0.data_ptr(),
+  index_type = stream.dtype
+  if stream.dim() != 1 or stream.shape != start.shape or \
+      start.dtype != index_type or \
+      index_type not in (torch.int32, torch.int64):
+    raise ValueError("stream and start must be (B,) tensors, both int32 or "
+                     f"both int64; got {stream.dtype} {tuple(stream.shape)} "
+                     f"and {start.dtype} {tuple(start.shape)}.")
+  if stream.device != dev or start.device != dev:
+    raise ValueError("indices must be on the frame store's device.")
+  stream, start = stream.contiguous(), start.contiguous()
+  b = stream.shape[0]
+  out = torch.empty((b, window, h, w), dtype=torch.uint8, device=dev)
+  KERNEL.launch(frames.data_ptr(), stream.data_ptr(), start.data_ptr(),
                 out.data_ptr(), b, s, r, window, row_bytes,
-                kernels.stream_ptr(frames.device))
+                4 if index_type == torch.int32 else 8,
+                kernels.stream_ptr(dev))
   return out

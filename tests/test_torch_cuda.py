@@ -33,19 +33,45 @@ def _gen(seed):
   return g
 
 
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32],
+                         ids=["int64", "int32"])
 @pytest.mark.parametrize("batch,window", [(1024, 5), (3, 7)])
-def test_k1_matches_plain(dev, batch, window):
+def test_k1_matches_plain(dev, batch, window, dtype):
   g = _gen(0)
   frames = torch.randint(0, 256, (16, 40, 84, 84), generator=g, device=dev,
                          dtype=torch.uint8)
-  stream = torch.randint(-2, 18, (batch,), generator=g, device=dev)
-  start = torch.randint(-3, 42, (batch,), generator=g, device=dev)
+  # Negative and out-of-range indices clamp like lax.dynamic_slice.
+  stream = torch.randint(-2, 18, (batch,), generator=g, device=dev,
+                         dtype=dtype)
+  start = torch.randint(-3, 42, (batch,), generator=g, device=dev,
+                        dtype=dtype)
+  stream[0], start[-1] = -40, 2**30
   before = twg.KERNEL.launches
   got = twg.gather_windows(frames, stream, start, window)
   torch.cuda.synchronize()
   assert twg.KERNEL.launches == before + 1
   assert torch.equal(got, twg.gather_windows_plain(frames, stream, start,
                                                    window))
+
+
+def test_k1_reads_the_callers_index_tensors_as_they_are(dev, monkeypatch):
+  """The replay's int64 indices reach the kernel by their own pointers: no
+  converted copy, one launch."""
+  frames = torch.randint(0, 256, (4, 12, 84, 84), generator=_gen(17),
+                         device=dev, dtype=torch.uint8)
+  stream = torch.tensor([0, 3, -1, 9], device=dev)
+  start = torch.tensor([2, -5, 7, 30], device=dev)
+  seen = []
+  launch = twg.KERNEL.launch
+  monkeypatch.setattr(twg.KERNEL, "launch",
+                      lambda *args: (seen.append(args), launch(*args)))
+  got = twg.gather_windows(frames, stream, start, 5)
+  torch.cuda.synchronize()
+  assert len(seen) == 1
+  assert seen[0][1:3] == (stream.data_ptr(), start.data_ptr())
+  assert torch.equal(got, twg.gather_windows_plain(frames, stream, start, 5))
+  with pytest.raises(ValueError, match="int32"):
+    twg.gather_windows(frames, stream, start.to(torch.int32), 5)
 
 
 @pytest.mark.parametrize("batch", [128, 5])
@@ -122,8 +148,10 @@ def _head_inputs(dev, b, s, a, seed):
           torch.relu(n(b, 3136)))
 
 
+# (128, 64): one split of D; the others cut D over blocks (d_splits > 1).
 @pytest.mark.parametrize("residuals", [False, True])
-@pytest.mark.parametrize("b,s,a", [(128, 64, 6), (4, 64, 6), (3, 24, 18)])
+@pytest.mark.parametrize("b,s,a", [(128, 64, 6), (4, 64, 6), (3, 24, 18),
+                                   (1, 1, 6), (2, 8, 6)])
 def test_k4a_matches_plain(dev, b, s, a, residuals):
   args = _head_inputs(dev, b, s, a, 8)
   kernel = iqn_head.FWD_RES if residuals else iqn_head.FWD
@@ -137,10 +165,26 @@ def test_k4a_matches_plain(dev, b, s, a, residuals):
   torch.cuda.synchronize()
   assert kernel.launches == before + 1
   assert tuple(q.shape) == (b, s, a)
-  # f32 on both sides, summed in another order than cuBLAS (TF32 is off).
+  # f32 against 3xTF32 on the tensor cores, summed in another order than
+  # cuBLAS (TF32 is off there).
   torch.testing.assert_close(q, want_q, rtol=1e-4, atol=1e-5)
   if residuals:
     torch.testing.assert_close(h, want_h, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("residuals", [False, True])
+def test_k4a_split_launches_are_bit_identical(dev, residuals):
+  """At B = 4 the blocks share D and a second kernel adds their partials in
+  split order, without atomics: two launches give the same bits."""
+  args = _head_inputs(dev, 4, 64, 6, 18)
+  assert iqn_head.d_splits(4, 64) > 1
+  run = lambda: iqn_head.iqn_head_forward(*args, residuals=residuals)
+  first, second = run(), run()
+  torch.cuda.synchronize()
+  if not residuals:
+    first, second = (first,), (second,)
+  for u, v in zip(first, second):
+    assert torch.equal(u, v)
 
 
 def test_k4a_wrapper_launches_or_raises(dev):

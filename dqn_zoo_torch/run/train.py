@@ -29,8 +29,10 @@ _SPEC_FLOATS = (
     "learning_rate", "optimizer_epsilon", "exploration_epsilon_begin_value",
     "exploration_epsilon_end_value", "exploration_epsilon_decay_frame_fraction",
     "eval_exploration_epsilon", "grad_error_bound", "max_global_grad_norm",
-    "priority_exponent")
-_SPEC_INTS = ("target_network_update_period", "learn_period", "n_steps")
+    "priority_exponent", "huber_param")
+_SPEC_INTS = ("target_network_update_period", "learn_period", "n_steps",
+              "tau_latent_dim", "tau_samples_policy", "tau_samples_s_tm1",
+              "tau_samples_s_t")
 # Flag name -> AgentSpec field, where they differ.
 _SPEC_FIELD = {
     "exploration_epsilon_begin_value": "exploration_epsilon_begin",
@@ -111,6 +113,12 @@ def _parser() -> argparse.ArgumentParser:
   add("--eval_num_envs", type=int, default=0)
   add("--mesh_devices", type=int, default=0)
   add("--device", default="cuda", help="cuda (default) or cpu.")
+  add("--compute_dtype", default="",
+      help="float32 (default); bfloat16 is not ported yet.")
+  add("--num_action_repeats", type=int, default=0,
+      help="Raw frames per agent step; only 4 (or 0 = 4).")
+  add("--num_stacked_frames", type=int, default=0,
+      help="Observation stack depth; only 4 (or 0 = 4).")
   for name in _SPEC_FLOATS:
     add(f"--{name}", type=float, default=None)
   for name in _SPEC_INTS:
@@ -119,6 +127,17 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _spec_overrides(args) -> dict:
+  """AgentSpec overrides from the flags, as the JAX CLI collects them: unset
+  flags (None, or <= 0 for the ints) stay out, so agent defaults survive."""
+  if args.num_action_repeats not in (0, 4):
+    raise ValueError("num_action_repeats: only 4 is supported; got "
+                     f"{args.num_action_repeats}.")
+  if args.num_stacked_frames not in (0, 4):
+    raise ValueError("num_stacked_frames: only 4 is supported; got "
+                     f"{args.num_stacked_frames}.")
+  if args.compute_dtype not in ("", "float32"):
+    raise NotImplementedError("--compute_dtype: the port computes in float32 "
+                              f"only; got {args.compute_dtype!r}.")
   out = {}
   for name in _SPEC_FLOATS:
     if getattr(args, name) is not None:
@@ -126,6 +145,8 @@ def _spec_overrides(args) -> dict:
   for name in _SPEC_INTS:
     if getattr(args, name) > 0:
       out[_SPEC_FIELD.get(name, name)] = getattr(args, name)
+  if args.compute_dtype:
+    out["compute_dtype"] = args.compute_dtype
   return out
 
 

@@ -1,0 +1,68 @@
+"""The port's CLI flags against the JAX CLI's (CPU): a reference command line
+parses in `dqn_zoo_torch.run.train` and maps to the same AgentSpec
+overrides as `dqn_zoo_tpu.run.train._spec_overrides_from_flags`."""
+
+import pytest
+from absl import flags
+from absl.testing import flagsaver
+
+from dqn_zoo_tpu.run import train as jtrain
+from dqn_zoo_torch.run import train as ttrain
+
+_CASES = [
+    # A reference iqn command line: the five iqn flags.
+    dict(huber_param=2.0, tau_latent_dim=32, tau_samples_policy=16,
+         tau_samples_s_tm1=8, tau_samples_s_t=8),
+    # The dqn-family flags beside them, and the accepted dtype/stack values.
+    dict(learning_rate=5e-5, grad_error_bound=0.05, n_steps=3,
+         target_network_update_period=1000, exploration_epsilon_end_value=0.01,
+         compute_dtype="float32", num_action_repeats=4, num_stacked_frames=4),
+    # Nothing set: no overrides at all.
+    dict(),
+]
+
+
+def _argv(values: dict) -> list:
+  return [f"--{k}={v}" for k, v in values.items()]
+
+
+def _jax_overrides(values: dict) -> dict:
+  flags.FLAGS.mark_as_parsed()
+  with flagsaver.flagsaver(**values):
+    return jtrain._spec_overrides_from_flags()
+
+
+@pytest.mark.parametrize("values", _CASES, ids=["iqn", "dqn_family", "unset"])
+def test_spec_overrides_match_the_jax_cli(values):
+  argv = ["--agent=iqn"] + _argv(values)
+  ours = ttrain._spec_overrides(ttrain._parser().parse_args(argv))
+  assert ours == _jax_overrides(values)
+  for name in ("huber_param", "tau_latent_dim", "tau_samples_policy",
+               "tau_samples_s_tm1", "tau_samples_s_t", "compute_dtype"):
+    assert (name in ours) == (name in values), name
+
+
+def test_iqn_flags_reach_the_engine_spec():
+  argv = ["--agent=iqn", "--huber_param=2", "--tau_latent_dim=32",
+          "--tau_samples_policy=16", "--tau_samples_s_tm1=8",
+          "--tau_samples_s_t=8"]
+  args = ttrain._parser().parse_args(argv)
+  spec = ttrain.build_engine(
+      "iqn", "pong", num_envs=2, replay_capacity=64,
+      spec_overrides=ttrain._spec_overrides(args), device="cpu").config.agent
+  assert (spec.huber_param, spec.tau_latent_dim, spec.tau_samples_policy,
+          spec.tau_samples_s_tm1, spec.tau_samples_s_t) == (2.0, 32, 16, 8, 8)
+
+
+@pytest.mark.parametrize("flag,values,error", [
+    ("--num_action_repeats=3", dict(num_action_repeats=3), ValueError),
+    ("--num_stacked_frames=2", dict(num_stacked_frames=2), ValueError),
+    ("--compute_dtype=bfloat16", None, NotImplementedError),
+])
+def test_unsupported_values_raise(flag, values, error):
+  args = ttrain._parser().parse_args(["--agent=iqn", flag])
+  with pytest.raises(error, match=flag[2:].split("=")[0]):
+    ttrain._spec_overrides(args)
+  if values is not None:  # the JAX CLI raises the same error
+    with pytest.raises(ValueError, match=flag[2:].split("=")[0]):
+      _jax_overrides(values)

@@ -469,6 +469,13 @@ def check_head_backward(dev, gen, report, head_inputs):
       d_args = (we, be, wh, cos_emb, s_emb, dh)
       *got, mask = iqn_head.iqn_head_bwd_d(*d_args, need_dcos=True,
                                            return_te_mask=True)
+      # Every sum is taken in a fixed order: a second launch gives the same
+      # bits.
+      again = iqn_head.iqn_head_bwd_d(*d_args, need_dcos=True,
+                                      return_te_mask=True)
+      if not all(torch.equal(u, v) for u, v in zip((*got, mask), again)):
+        fail(f"K4c B={b} S={s}: two launches gave different bits")
+      del again
       flips = int((mask.bool() != (cos_emb.reshape(b * s, -1) @ we + be > 0))
                   .sum())
       err, fro = hold("K4c", shape, ("dwe", "dbe", "ds_emb", "dcos"), got,
@@ -487,7 +494,7 @@ def check_head_backward(dev, gen, report, head_inputs):
               *d_args, need_dcos=False), iters=iters),
           time_ms(lambda: d_library(*d_args, False), iters=iters),
           nbytes, flops, role=role, rel_frobenius_err=fro,
-          te_branch_flips=flips,
+          te_branch_flips=flips, bit_identical_repeat=True,
           with_dcos=dict(
               ms=time_ms(lambda: iqn_head.iqn_head_bwd_d(*d_args),
                          iters=iters),

@@ -22,39 +22,77 @@
 // dwh, dwe and dbe into a resident output. A CUDA grid has no order, so here
 // the loop is turned round: one block owns 32 columns of D (D / 32 = 98 at
 // D = 3136) and walks the rows in steps. Every sum over rows then lives in
-// one block's registers from its first row to its last:
+// one block from its first row to its last:
 //   K4b: the block's (32, 512) tile of dwh, 8 x 8 per thread;
 //   K4c: its (64, 32) tile of dwe, its 32 entries of dbe and the running
 //        per-stream sum of ds_emb, written out whenever the stream index
 //        r / S changes (rows arrive in order, so any B and S are taken and a
 //        stream may straddle steps).
-// Each sum is taken by one thread in row order: no atomics, results repeat
-// bit for bit. 98 blocks would leave 34 of the card's 132 SMs idle, so at
-// large B the streams are cut into G consecutive groups (the grid's second
-// axis, G <= 4, chosen by the wrapper from the shape alone): each block
-// walks its group's rows, writes its sums to partial g, and a small second
-// kernel adds the G partials in group order. A group holds whole streams,
-// so ds_emb needs no partial.
+// Each sum is taken in a fixed order: no atomics, results repeat bit for
+// bit. 98 blocks would leave 34 of the card's 132 SMs idle, so at large B the
+// streams are cut into G consecutive groups (the grid's second axis, G <= 4,
+// chosen by the wrapper from the shape alone): each block walks its group's
+// rows, writes its sums to partial g, and a small second kernel adds the G
+// partials in group order. A group holds whole streams, so ds_emb needs no
+// partial.
 //
 // dcos is the one sum over D, so over blocks: each block writes its partial
 // (rows, 64) product into a scratch buffer and the same small kernel adds the
 // 98 partials in block order. The learn step draws its cosine features from
 // tau samples and needs no dcos: a null pointer skips all of it.
 //
-// Bound on the H100: operations (f32 FMAs on the CUDA cores, no tensor
-// cores in this version). At the learn shape (B = 1024, S = 64) K4b is
-// 237 GFLOP and K4c 289 GFLOP against 151 MB and 170 MB of inputs.
+// Bound on the H100: operations. At the learn shape (B = 1024, S = 64) K4b
+// is 237 GFLOP and K4c (without dcos) 263 GFLOP against 151 MB and 170 MB of
+// inputs.
 //
-// The thread's column of we (64 values) is kept in registers for the whole
-// walk, so the te recompute reads only broadcast cosine rows from shared
-// memory. cos and dh steps arrive by cp.async into a second buffer under the
-// arithmetic of the current step.
+// K4b runs on the CUDA cores: the thread's column of we (64 values) is kept
+// in registers for the whole walk, so the te recompute reads only broadcast
+// cosine rows from shared memory; cos and dh steps arrive by cp.async into a
+// second buffer under the arithmetic of the current step.
 //
-// K4c's 512-deep product dhi = dh_step (16, 512) @ wh_tile^T (512, 32) has
-// only 512 outputs per step, so the depth is split over the 8 warps (64 each,
-// 4 rows x 4 columns per lane) and the 8 partials are added in warp order
-// through shared memory. The block's 32 rows of wh (64 KB, one contiguous run)
-// stay resident in shared memory.
+// K4c runs its three products on the tensor cores in 3xTF32 (tf32_mma.cuh;
+// `mma.sync.m16n8k8`, the path K4a takes). A step is 128 rows; warp w owns
+// rows 16 w .. 16 w + 15 of it and all 32 columns (4 mma column tiles), so
+// each warp runs the full 512-deep product itself and nothing is added
+// across warps:
+//   te_pre = cos_step @ we_tile   8 k-steps, from the step's cosine rows and
+//                                 the block's we tile in shared memory;
+//   dhi = dh_step @ wh_tile^T     64 k-steps; the block's 32 rows of wh stay
+//                                 resident in shared memory, and the warp's
+//                                 16 rows of dh arrive in chunks of 32 deep
+//                                 through its own ring of 4 buffers
+//                                 (cp.async, 3 chunks in flight, no block
+//                                 barrier);
+//   dwe += cos_step^T @ dte      16 k-steps over the step's rows; the 16
+//                                 tiles of the (64, 32) output are 2 per warp
+//                                 and stay in registers for the whole walk.
+// te_pre's and dhi's accumulators sit at the same (row, column) lane
+// positions, so dte, g = dhi * te and the te_mask bits are computed in
+// registers, and so is each lane's share of dbe (its rows' dte, added over
+// lanes and warps in a fixed order at the end). dte is staged in shared
+// memory for dwe and dcos, g for ds_emb, which the warps take stream by
+// stream, each summing its stream's rows in row order on the CUDA cores.
+// dwe folds each k-step's three products into its accumulators with a
+// rounding f32 add (it sums over up to 16,384 rows per group). dhi (64
+// k-steps, even and odd ones in two accumulators) and te_pre (8) take them
+// straight: on the card, without the fold every output stays within a fifth
+// of its tolerance and the kernel runs 4-9 % faster
+// (tools/torch_kernel_variants.py, K4C).
+//
+// The reduction dimension of a product may be walked in any order as long as
+// both operands take the same one. K4c uses that to load fragments whole:
+// within 16 columns of dh (two k-steps), lane (g, t) takes columns 4t .. 4t+3
+// by one 16-byte load, the first two as k = t and t + 4 of the first k-step,
+// the last two of the second; wh's B fragments are read the same way. In
+// dwe's k-steps over rows, lane t takes rows 2t and 2t + 1. Shared-memory
+// strides and XOR swizzles keep every fragment load free of bank conflicts.
+//
+// Shared memory: wh tile 64 KB + 2 x cosine step 34 KB + we tile 10 KB + dte
+// 18 KB + 8 warps x 4 ring buffers of 2 KB = 224 KB, one block per SM.
+// What sets the pace (K4C_PARTS in tools/torch_kernel_variants.py): the dhi
+// loop alone is three quarters of the time, and without any TF32 split it is
+// still 4.2 ms at the learn shape, ~47 % of the rate `mma.sync` reaches with
+// no operand traffic; `wgmma` is the next step.
 //
 // ReLU branch: te_pre is summed here in another order than a library product
 // sums it, so an entry within rounding of 0 may take the other branch and
@@ -65,9 +103,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kL = 64;    // cosine features per tau sample
 constexpr int kH = 512;   // hidden width
 constexpr int kDC = 32;   // columns of D per block
@@ -76,27 +117,20 @@ constexpr int kDC = 32;   // columns of D per block
 constexpr int kRW = 32;
 constexpr int kSmemW = (2 * kRW * kL + 2 * kRW * kH + kRW * kDC) * 4;
 
-// K4c: rows per step and padded strides (see the bank notes at each use).
-constexpr int kRD = 16;
-constexpr int kHS = kH + 4;    // row stride of the wh tile and the dh steps
-constexpr int kRS = 40;        // row stride of the depth-split partials
-constexpr int kWS = kDC + 4;   // row stride of the we tile (dcos only)
-constexpr int kSmemD = (kDC * kHS + 2 * kRD * kHS + 2 * kRD * kL +
-                        8 * kRD * kRS + 2 * kRD * kDC + kL * kWS) * 4;
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
+// K4c: rows per step (16 a warp), depth of a dh chunk, chunks per step, ring
+// buffers per warp, and padded row strides (see the bank notes at each use).
+constexpr int kRD = 16 * kWarps;
+constexpr int kKC = 32;
+constexpr int kChunks = kH / kKC;
+constexpr int kStages = 4;  // a power of 2
+constexpr int kCosS = kL + 4;
+constexpr int kDteS = kDC + 4;
+constexpr int kWeS = kDC + 8;
+constexpr int kRing = 16 * kKC;  // floats of one warp's ring buffer
+constexpr int kSmemD = (kDC * kH + 2 * kRD * kCosS + kL * kWeS +
+                        kRD * kDteS + kWarps * kStages * kRing + 2 * kDC) * 4;
+static_assert(kSmemD <= 232448, "K4c's shared memory exceeds the H100's");
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ void fma4(float* acc, float v, float4 w) {
   acc[0] = fmaf(v, w.x, acc[0]);
@@ -274,170 +308,333 @@ iqn_head_bwd_d_kernel(const float* __restrict__ cosx,
                       uint8_t* __restrict__ te_mask,   // null: not written
                       int s, int nb, int d) {
   extern __shared__ __align__(16) float smem[];
-  float* wh_s = smem;                       // [kDC][kHS]
-  float* dh_s = wh_s + kDC * kHS;           // [2][kRD][kHS]
-  float* cos_s = dh_s + 2 * kRD * kHS;      // [2][kRD][kL]
-  float* red_s = cos_s + 2 * kRD * kL;      // [8][kRD][kRS]
-  float* dte_s = red_s + 8 * kRD * kRS;     // [kRD][kDC]
-  float* g_s = dte_s + kRD * kDC;           // [kRD][kDC]: dhi * te
-  float* we_s = g_s + kRD * kDC;            // [kL][kWS]
+  float* wh_s = smem;                      // [kDC][kH], swizzled (below)
+  float* cos_s = wh_s + kDC * kH;          // [2][kRD][kCosS]
+  float* we_s = cos_s + 2 * kRD * kCosS;   // [kL][kWeS]
+  float* dte_s = we_s + kL * kWeS;         // [kRD][kDteS]
+  float* ring = dte_s + kRD * kDteS;       // [kWarps][kStages][16][kKC]
+  float* carry_s = ring + kWarps * kStages * kRing;  // [2][kDC]: ds_emb
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const int d0 = blockIdx.x * kDC;
   // This block's group of streams, and its rows [row_lo, rows).
   const int row_lo = group_begin(blockIdx.y, gridDim.y, nb) * s;
   const int rows = group_begin(blockIdx.y + 1, gridDim.y, nb) * s;
   const int nsteps = (rows - row_lo + kRD - 1) / kRD;
+  const int nchunks = nsteps * kChunks;
 
-  auto prefetch = [&](int c) {
-    const int buf = c & 1;
+  // The block's 32 rows of wh (columns d0 .. d0 + 31 of D; d is a multiple
+  // of 32, so none is past the end) and its (64, 32) tile of we, resident
+  // for the whole walk. wh row n keeps its 16-byte piece c4 at c4 ^ 4 (n & 1):
+  // the 8 lanes of a quarter-warp read rows n and n + 1 at the same 4
+  // pieces, which then fall on all 32 banks.
+  for (int i = tid; i < kDC * kH / 4; i += kThreads) {
+    const int n = i >> 7, c4 = i & 127;
+    cp_async16(wh_s + n * kH + 4 * (c4 ^ ((n & 1) << 2)),
+               wh + (long long)(d0 + n) * kH + 4 * c4);
+  }
+  for (int i = tid; i < kL * kDC / 4; i += kThreads) {
+    const int l = i >> 3, c4 = i & 7;
+    cp_async16(we_s + l * kWeS + 4 * c4, we + (long long)l * d + d0 + 4 * c4);
+  }
+  // The cosine rows of step c towards buffer c & 1; rows past the group's
+  // end are zero-filled.
+  auto copy_cos = [&](int c) {
+    float* dst = cos_s + (c & 1) * kRD * kCosS;
     const int r0 = row_lo + c * kRD;
-    fetch_rows<kL>(cos_s + buf * kRD * kL, kL, cosx, r0, kRD, rows, tid);
-    fetch_rows<kH>(dh_s + buf * kRD * kHS, kHS, dh, r0, kRD, rows, tid);
-    cp_async_commit();
+    for (int i = tid; i < kRD * kL / 4; i += kThreads) {
+      const int r = i >> 4, c4 = i & 15;
+      const bool in = r0 + r < rows;
+      cp_async16_zfill(dst + r * kCosS + 4 * c4,
+                       cosx + (long long)(in ? r0 + r : 0) * kL + 4 * c4,
+                       in ? 16 : 0);
+    }
   };
-  // The block's 32 rows of wh, resident for the whole walk (d is a multiple
-  // of 32, so none is past the end), with step 0.
-  fetch_rows<kH>(wh_s, kHS, wh, d0, kDC, d, tid);
-  prefetch(0);
-
-  float wreg[kL];
+  // Chunk q (step q / kChunks, depth (q % kChunks) * 32 ..) of this warp's
+  // 16 rows of dh towards its ring buffer q % kStages, swizzled like wh.
+  // Lane (i, c4) = (lane / 8, lane % 8) copies piece c4 of rows i + 4 u.
+  const int ci = lane >> 3, c4 = lane & 7;
+  float* const ring_w = ring + warp * kStages * kRing;
+  const int cdst = ci * kKC + 4 * (c4 ^ ((ci & 1) << 2));
+  auto copy_dh = [&](int q) {
+    const int r = row_lo + (q / kChunks) * kRD + 16 * warp + ci;
+    const float* src = dh + (long long)r * kH + kKC * (q % kChunks) + 4 * c4;
+    float* dst = ring_w + (q % kStages) * kRing + cdst;
 #pragma unroll
-  for (int l = 0; l < kL; ++l) wreg[l] = __ldg(we + (long long)l * d + d0 + lane);
-  const float bias = __ldg(be + d0 + lane);
-  if (dcos_part != nullptr)
-    for (int i = tid; i < kL * kDC; i += kThreads)
-      we_s[(i / kDC) * kWS + (i % kDC)] =
-          __ldg(we + (long long)(i / kDC) * d + d0 + (i % kDC));
+    for (int u = 0; u < 4; ++u) {
+      const bool in = r + 4 * u < rows;
+      cp_async16_zfill(dst + 4 * u * kKC, in ? src + 4 * u * kH : dh,
+                       in ? 16 : 0);
+    }
+  };
+  copy_cos(0);
+  cp_async_commit();
+  for (int q = 0; q < kStages - 1; ++q) {  // nchunks >= kChunks > kStages
+    copy_dh(q);
+    cp_async_commit();
+  }
 
-  // Walk-long sums: dwe rows 8 warp .. + 7 at column lane; dbe (warp 0) and
-  // the running ds_emb of stream `cur` (warp 1) at column lane.
-  float dwe_acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float dbe_acc = 0.f, ds_acc = 0.f;
-  int cur = -1;
+  // be at this lane's accumulator columns 8 j + 2 t, + 1.
+  float2 bias[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    bias[j] = __ldg(reinterpret_cast<const float2*>(be + d0 + 8 * j + 2 * t));
 
-  // dhi phase: warp = depth slice [64 warp, 64 warp + 64); the lane owns rows
-  // rg + 4 i and tile columns kg + 8 j. With the row stride of 516 floats the
-  // 4 dh rows and the 8 wh rows a warp reads at once fall on distinct banks.
-  const int rg = lane >> 3, kg = lane & 7;
+  // Walk-long sums: dwe rows 16 wi .. + 15 at column tiles wj, wj + 1 (in
+  // mma accumulator order), and this lane's share of dbe: the sum of dte
+  // over its rows g and g + 8 of every step, at its accumulator columns
+  // (added over the lanes and warps in a fixed order at the end).
+  const int wi = warp >> 1, wj = 2 * (warp & 1);
+  float dwe_acc[2][4] = {};
+  float dbe_acc[4][2] = {};
 
   for (int c = 0; c < nsteps; ++c) {
     cp_async_wait_all();
-    __syncthreads();  // step c has landed; everyone has left step c - 1
-    if (c + 1 < nsteps) prefetch(c + 1);
-    const int buf = c & 1;
+    __syncthreads();  // step c's cosine rows have landed; everyone has left
+                      // step c - 1's staging
     const int r0 = row_lo + c * kRD;
-    const float* cosb = cos_s + buf * kRD * kL;
+    const float* cosb = cos_s + (c & 1) * kRD * kCosS;
 
+    // te_pre of the warp's rows: accumulator (j, e) is row 16 warp + g +
+    // 8 (e >> 1) of the step, column 8 j + 2 t + (e & 1). Stride 68: the A
+    // reads (row g, column t) fall on bank 4 g + t; stride 40: the B reads
+    // (row t, column g) on 8 t + g.
+    float tp[4][4] = {};
     {
-      float acc[4][4];
+      const float* ap = cosb + (16 * warp + g) * kCosS + t;
+      const float* bp = we_s + t * kWeS + g;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int ks = 0; ks < kL / 8; ++ks) {
+        uint32_t ab[4], as[4];
+        split_tf32(ap[8 * ks], ab[0], as[0]);
+        split_tf32(ap[8 * kCosS + 8 * ks], ab[1], as[1]);
+        split_tf32(ap[8 * ks + 4], ab[2], as[2]);
+        split_tf32(ap[8 * kCosS + 8 * ks + 4], ab[3], as[3]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      const float* ab = dh_s + buf * kRD * kHS + rg * kHS + 64 * warp;
-      const float* bb = wh_s + kg * kHS + 64 * warp;
-#pragma unroll 4
-      for (int h4 = 0; h4 < 16; ++h4) {
-        float4 a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          a[i] = *reinterpret_cast<const float4*>(ab + 4 * i * kHS + 4 * h4);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          b[j] = *reinterpret_cast<const float4*>(bb + 8 * j * kHS + 4 * h4);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = dot4(a[i], b[j], acc[i][j]);
-      }
-      // Row stride 40: the 32 lanes of one store fall on 32 banks.
-      float* rp = red_s + (warp * kRD + rg) * kRS + kg;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) rp[4 * i * kRS + 8 * j] = acc[i][j];
-    }
-    __syncthreads();
-
-    // Elementwise phase: rows warp and warp + 8 of the step, column lane.
-#pragma unroll
-    for (int ii = 0; ii < 2; ++ii) {
-      const int r = warp + 8 * ii;
-      const int row = r0 + r;
-      float dhi = 0.f;
-#pragma unroll
-      for (int w = 0; w < 8; ++w) dhi += red_s[(w * kRD + r) * kRS + lane];
-      const float tp = te_pre_of(cosb + r * kL, wreg, bias);
-      int st = row / s;
-      st = st < nb ? st : nb - 1;  // rows past the end: dhi is zero there
-      const float sv = __ldg(semb + (long long)st * d + d0 + lane);
-      const bool pos = tp > 0.f;
-      g_s[r * kDC + lane] = dhi * fmaxf(tp, 0.f);
-      dte_s[r * kDC + lane] = pos ? dhi * sv : 0.f;
-      if (te_mask != nullptr && row < rows)
-        te_mask[(long long)row * d + d0 + lane] = pos ? 1 : 0;
-    }
-    __syncthreads();
-
-    // Sums over the step's rows, in row order.
-#pragma unroll 4
-    for (int r = 0; r < kRD; ++r) {
-      const float x = dte_s[r * kDC + lane];
-      const float4 c0 =
-          *reinterpret_cast<const float4*>(cosb + r * kL + 8 * warp);
-      const float4 c1 =
-          *reinterpret_cast<const float4*>(cosb + r * kL + 8 * warp + 4);
-      dwe_acc[0] = fmaf(c0.x, x, dwe_acc[0]);
-      dwe_acc[1] = fmaf(c0.y, x, dwe_acc[1]);
-      dwe_acc[2] = fmaf(c0.z, x, dwe_acc[2]);
-      dwe_acc[3] = fmaf(c0.w, x, dwe_acc[3]);
-      dwe_acc[4] = fmaf(c1.x, x, dwe_acc[4]);
-      dwe_acc[5] = fmaf(c1.y, x, dwe_acc[5]);
-      dwe_acc[6] = fmaf(c1.z, x, dwe_acc[6]);
-      dwe_acc[7] = fmaf(c1.w, x, dwe_acc[7]);
-      if (warp == 0) dbe_acc += x;
-    }
-    if (warp == 1) {
-      for (int r = 0; r < kRD && r0 + r < rows; ++r) {
-        const int st = (r0 + r) / s;
-        if (st != cur) {  // the stream's rows are over: write its sum
-          if (cur >= 0) dsemb[(long long)cur * d + d0 + lane] = ds_acc;
-          ds_acc = 0.f;
-          cur = st;
+        for (int j = 0; j < 4; ++j) {
+          uint32_t bb[2], bs[2];
+          load_b(bb, bs, bp + 8 * ks * kWeS + 8 * j, kWeS);
+          mma_3xtf32(tp[j], ab, as, bb, bs);
         }
-        ds_acc += g_s[r * kDC + lane];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        tp[j][0] += bias[j].x;
+        tp[j][1] += bias[j].y;
+        tp[j][2] += bias[j].x;
+        tp[j][3] += bias[j].y;
+      }
+    }
+
+    // s_emb at the lane's rows g, g + 8 and accumulator columns, loaded
+    // here so that the loads are in by the elementwise phase.
+    float2 sv[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int st = (r0 + 16 * warp + g + 8 * h) / s;
+      st = st < nb ? st : nb - 1;  // rows past the end: dhi is zero there
+      const float* sp = semb + (long long)st * d + d0 + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        sv[h][j] = __ldg(reinterpret_cast<const float2*>(sp + 8 * j));
+    }
+
+    // dhi of the warp's rows, in the same accumulator positions, chunk by
+    // chunk through the warp's ring (three chunks in flight). Even and odd
+    // k-steps go into two accumulators, added at the end: twice the
+    // independent mma chains, half as deep.
+    float acc[4][4] = {}, acc_odd[4][4] = {};
+    for (int kc = 0; kc < kChunks; ++kc) {
+      const int q = c * kChunks + kc;
+      cp_async_wait<kStages - 2>();
+      __syncwarp();  // chunk q has landed for every lane; all have left q - 1
+      if (q + kStages - 1 < nchunks) copy_dh(q + kStages - 1);
+      if (kc == 0 && c + 1 < nsteps) copy_cos(c + 1);
+      cp_async_commit();
+      const float* ab_ = ring_w + (q % kStages) * kRing + g * kKC;
+      const float* wb = wh_s + g * kH + kKC * kc;
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        // Columns 16 p + 4 t .. + 3 of rows g and g + 8: k = t, t + 4 of
+        // k-step 2 p, then of k-step 2 p + 1. The swizzle flips bit 2 of a
+        // piece's index only, so wh's piece 8 kc + 4 p + t of row 8 j + g
+        // lies at 32 kc + sw.
+        const int sw = 4 * ((4 * p + t) ^ ((g & 1) << 2));
+        const float4 x0 = *reinterpret_cast<const float4*>(ab_ + sw);
+        const float4 x1 = *reinterpret_cast<const float4*>(ab_ + 8 * kKC + sw);
+        uint32_t a0b[4], a0s[4], a1b[4], a1s[4];
+        split_tf32(x0.x, a0b[0], a0s[0]);
+        split_tf32(x1.x, a0b[1], a0s[1]);
+        split_tf32(x0.y, a0b[2], a0s[2]);
+        split_tf32(x1.y, a0b[3], a0s[3]);
+        split_tf32(x0.z, a1b[0], a1s[0]);
+        split_tf32(x1.z, a1b[1], a1s[1]);
+        split_tf32(x0.w, a1b[2], a1s[2]);
+        split_tf32(x1.w, a1b[3], a1s[3]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float4 w =
+              *reinterpret_cast<const float4*>(wb + 8 * j * kH + sw);
+          uint32_t b0b[2], b0s[2], b1b[2], b1s[2];
+          split_tf32(w.x, b0b[0], b0s[0]);
+          split_tf32(w.y, b0b[1], b0s[1]);
+          split_tf32(w.z, b1b[0], b1s[0]);
+          split_tf32(w.w, b1b[1], b1s[1]);
+          mma_3xtf32(acc[j], a0b, a0s, b0b, b0s);
+          mma_3xtf32(acc_odd[j], a1b, a1s, b1b, b1s);
+        }
+      }
+    }
+
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += acc_odd[j][e];
+
+    // Elementwise, in registers: dte, g = dhi * te and the branch bits of
+    // rows g (e = 0, 1) and g + 8 (e = 2, 3). dte is staged for dwe and
+    // dcos; g for ds_emb in the ring buffer of the step's last chunk, which
+    // every lane of the warp has left and no copy refills before the next
+    // step (16 x 32, its columns XOR 8 (row & 3) to spread the stores).
+    float* g_w = ring + (warp * kStages + (c * kChunks + kChunks - 1) %
+                                              kStages) * kRing;
+    __syncwarp();  // every lane has left the last chunk
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * warp + g + 8 * h;
+      const int row = r0 + r;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float t0 = tp[j][2 * h], t1 = tp[j][2 * h + 1];
+        const float x0 = acc[j][2 * h], x1 = acc[j][2 * h + 1];
+        const bool p0 = t0 > 0.f, p1 = t1 > 0.f;
+        const float2 dte = make_float2(p0 ? x0 * sv[h][j].x : 0.f,
+                                       p1 ? x1 * sv[h][j].y : 0.f);
+        dbe_acc[j][0] += dte.x;
+        dbe_acc[j][1] += dte.y;
+        *reinterpret_cast<float2*>(dte_s + r * kDteS + 8 * j + 2 * t) = dte;
+        const int i = g + 8 * h;
+        *reinterpret_cast<float2*>(g_w + i * kKC +
+                                   ((8 * j + 2 * t) ^ ((i & 3) << 3))) =
+            make_float2(x0 * fmaxf(t0, 0.f), x1 * fmaxf(t1, 0.f));
+        if (te_mask != nullptr && row < rows)
+          *reinterpret_cast<uint16_t*>(
+              te_mask + (long long)row * d + d0 + 8 * j + 2 * t) =
+              (uint16_t)((p0 ? 1u : 0u) | (p1 ? 256u : 0u));
+      }
+    }
+    __syncthreads();
+
+    // dwe += cos_step^T @ dte over the step's 128 rows, 8 a k-step: lane t
+    // takes rows 2 t (k = t) and 2 t + 1 (k = t + 4). A (l, row) from the
+    // cosine rows, bank 8 t + g at stride 68; B (row, column) from dte,
+    // bank 8 t + g at stride 36.
+    {
+      const float* ap = cosb + 2 * t * kCosS + 16 * wi + g;
+      const float* bp = dte_s + 2 * t * kDteS + 8 * wj + g;
+#pragma unroll 4
+      for (int ks = 0; ks < kRD / 8; ++ks) {
+        const float* a = ap + 8 * ks * kCosS;
+        uint32_t ab[4], as[4];
+        split_tf32(a[0], ab[0], as[0]);
+        split_tf32(a[8], ab[1], as[1]);
+        split_tf32(a[kCosS], ab[2], as[2]);
+        split_tf32(a[kCosS + 8], ab[3], as[3]);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const float* b = bp + 8 * ks * kDteS + 8 * jj;
+          uint32_t bb[2], bs[2];
+          split_tf32(b[0], bb[0], bs[0]);
+          split_tf32(b[kDteS], bb[1], bs[1]);
+          mma_3xtf32_rn(dwe_acc[jj], ab, as, bb, bs);
+        }
+      }
+    }
+
+    // ds_emb: warp k takes the step's streams k, k + 8, ... and sums each
+    // over its rows of the step in row order, at column lane. A stream that
+    // runs on past the step leaves its sum in carry buffer c & 1, and the
+    // warp that takes it as the next step's first stream starts from there
+    // (two buffers: in one step the first stream's warp may read while the
+    // last one's writes). Groups hold whole streams, so every stream ends
+    // within its group.
+    {
+      const float* g_s = ring + ((c * kChunks + kChunks - 1) % kStages) * kRing;
+      const int st0 = r0 / s;
+      const int end = min(r0 + kRD, rows);
+      const int nst = (end - 1) / s - st0 + 1;
+      for (int k = warp; k < nst; k += kWarps) {
+        const int st = st0 + k;
+        const int a = max(st * s, r0), e = min((st + 1) * s, end);
+        float sum = st * s < r0 ? carry_s[((c + 1) & 1) * kDC + lane] : 0.f;
+#pragma unroll 4
+        for (int r = a; r < e; ++r) {
+          const int w = (r - r0) >> 4, i = (r - r0) & 15;
+          sum += g_s[w * kStages * kRing + i * kKC + (lane ^ ((i & 3) << 3))];
+        }
+        if ((st + 1) * s <= end)
+          dsemb[(long long)st * d + d0 + lane] = sum;
+        else
+          carry_s[(c & 1) * kDC + lane] = sum;
       }
     }
     if (dcos_part != nullptr) {
-      // This block's share of dcos: row tid / 16 of the step, columns
-      // l4 + 16 e (row stride 36 keeps the we reads apart).
-      const int r = tid >> 4, l4 = tid & 15;
-      float p[4] = {0.f, 0.f, 0.f, 0.f};
+      // This block's share of dcos: rows tid / 16 + 16 i of the step,
+      // columns l4 + 16 e.
+      const int l4 = tid & 15;
+      for (int r = tid >> 4; r < kRD && r0 + r < rows; r += kThreads / 16) {
+        float p[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int k4 = 0; k4 < kDC / 4; ++k4) {
-        const float4 dv =
-            *reinterpret_cast<const float4*>(dte_s + r * kDC + 4 * k4);
+        for (int k4 = 0; k4 < kDC / 4; ++k4) {
+          const float4 dv =
+              *reinterpret_cast<const float4*>(dte_s + r * kDteS + 4 * k4);
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          p[e] = dot4(dv, *reinterpret_cast<const float4*>(
-                              we_s + (l4 + 16 * e) * kWS + 4 * k4), p[e]);
-      }
-      if (r0 + r < rows) {
-        float* out =
+          for (int e = 0; e < 4; ++e)
+            p[e] = dot4(dv, *reinterpret_cast<const float4*>(
+                                we_s + (l4 + 16 * e) * kWeS + 4 * k4), p[e]);
+        }
+        float* o =
             dcos_part + ((long long)blockIdx.x * nb * s + r0 + r) * kL + l4;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) out[16 * e] = p[e];
+        for (int e = 0; e < 4; ++e) o[16 * e] = p[e];
       }
     }
   }
 
   float* dwe = out + (long long)blockIdx.y * ((long long)kL * d + d);
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-    dwe[(long long)(8 * warp + i) * d + d0 + lane] = dwe_acc[i];
-  if (warp == 0) dwe[(long long)kL * d + d0 + lane] = dbe_acc;
-  if (warp == 1 && cur >= 0) dsemb[(long long)cur * d + d0 + lane] = ds_acc;
+  for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(
+          dwe + (long long)(16 * wi + g + 8 * h) * d + d0 + 8 * (wj + jj) +
+          2 * t) = make_float2(dwe_acc[jj][2 * h], dwe_acc[jj][2 * h + 1]);
+  // dbe: the lanes' sums over g (shuffles), then the warps' in warp order
+  // through shared memory (over the dte staging, which everyone has left).
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = dbe_acc[j][e];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      dbe_acc[j][e] = v;
+    }
+  __syncthreads();
+  if (g == 0)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float2*>(dte_s + warp * kDteS + 8 * j + 2 * t) =
+          make_float2(dbe_acc[j][0], dbe_acc[j][1]);
+  __syncthreads();
+  if (warp == 0) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) sum += dte_s[w * kDteS + lane];
+    dwe[(long long)kL * d + d0 + lane] = sum;
+  }
 }
 
 // out = the nparts partials added in their order; n4 float4s each.
@@ -501,10 +698,18 @@ extern "C" int dz_iqn_head_bwd_d(const void* cos, const void* semb,
                                  void* dcos_part, void* te_mask, int b, int s,
                                  int d, int groups, void* cuda_stream) {
   cudaStream_t st = (cudaStream_t)cuda_stream;
-  cudaError_t err = cudaFuncSetAttribute(
-      iqn_head_bwd_d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemD);
+  static bool smem_set[kMaxDevices];  // per device, once
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(iqn_head_bwd_d_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemD);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = true;
+  }
   iqn_head_bwd_d_kernel<<<dim3(d / kDC, groups), kThreads, kSmemD, st>>>(
       (const float*)cos, (const float*)semb, (const float*)dh,
       (const float*)we, (const float*)be, (const float*)wh,

@@ -4,8 +4,9 @@ Each `csrc/*.cu` file is compiled by `nvcc` into its own shared library with
 a plain C interface and loaded with `ctypes` (no PyTorch headers, so a build
 takes seconds). All sources build in parallel, one `nvcc` each, at first use,
 into `.torch_kernels/` at the root of the checkout; a library's file name
-carries the hash of its source and of the nvcc flags, so an edited source is
-rebuilt and an unchanged one is reused.
+carries the hash of its source, of the shared headers (`csrc/*.cuh`) and of
+the nvcc flags, so an edited source is rebuilt and an unchanged one is
+reused.
 
 `-Xptxas -v` is among the flags: each build's compiler output (registers,
 shared memory and spills of every kernel) is kept in `BUILD_LOG`.
@@ -50,6 +51,8 @@ def find_nvcc() -> str:
 
 def _lib_path(source: str) -> pathlib.Path:
   h = hashlib.sha256((CSRC / source).read_bytes())
+  for header in sorted(CSRC.glob("*.cuh")):
+    h.update(header.read_bytes())
   h.update(" ".join(NVCC_FLAGS).encode())
   return BUILD_DIR / f"{pathlib.Path(source).stem}_{h.hexdigest()[:16]}.so"
 

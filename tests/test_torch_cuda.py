@@ -247,9 +247,11 @@ def test_k4b_matches_plain(dev, b, s, a):
                                atol=1e-5 * float(w.abs().max()))
 
 
+# (1024, 64): the learn shape, four row groups, held as chip_smoke.py holds
+# it (relative Frobenius only); the others also elementwise.
 @pytest.mark.parametrize("need_dcos", [True, False])
-@pytest.mark.parametrize("b,s,a", [(128, 64, 6), (4, 64, 6), (3, 24, 18),
-                                   (5, 512, 6)])
+@pytest.mark.parametrize("b,s,a", [(1024, 64, 6), (128, 64, 6), (4, 64, 6),
+                                   (3, 24, 18), (5, 512, 6)])
 def test_k4c_matches_plain(dev, b, s, a, need_dcos):
   args = _head_inputs(dev, b, s, a, 12)
   we, be, wh, _, _, _, cos_emb, s_emb = args
@@ -267,14 +269,31 @@ def test_k4c_matches_plain(dev, b, s, a, need_dcos):
   want = iqn_head.iqn_head_bwd_d_plain(we, be, wh, cos_emb, s_emb, dh,
                                        need_dcos=need_dcos, te_mask=mask)
   te_pre = cos_emb.reshape(b * s, -1) @ we + be
-  assert int((mask.bool() != (te_pre > 0)).sum()) <= 8
+  assert int((mask.bool() != (te_pre > 0)).sum()) <= 8 * max(1, b // 128)
   for g, w in zip(got, want):
     if w is None:
       continue
     assert tuple(g.shape) == tuple(w.shape)
     assert _rel(g, w) <= 1e-4
-    torch.testing.assert_close(g, w, rtol=1e-4,
-                               atol=1e-5 * float(w.abs().max()))
+    if b < 1024:
+      torch.testing.assert_close(g, w, rtol=1e-4,
+                                 atol=1e-5 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("b,s,a", [(1024, 64, 6), (3, 24, 18)])
+def test_k4c_launches_are_bit_identical(dev, b, s, a):
+  """Every sum over rows is taken in a fixed order (row groups added in
+  group order, dcos partials in block order): two launches give the same
+  bits."""
+  args = _head_inputs(dev, b, s, a, 19)
+  we, be, wh, _, _, _, cos_emb, s_emb = args
+  dh = _head_dh(dev, args, 20)
+  run = lambda: iqn_head.iqn_head_bwd_d(we, be, wh, cos_emb, s_emb, dh,
+                                        need_dcos=True, return_te_mask=True)
+  first, second = run(), run()
+  torch.cuda.synchronize()
+  for u, v in zip(first, second):
+    assert torch.equal(u, v)
 
 
 def test_k4_function_gradients_match_plain(dev):

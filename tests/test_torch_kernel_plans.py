@@ -1,6 +1,6 @@
-"""What the CPU can check of the K4a and K1 kernels' plans: the split of D
-over blocks, that 3xTF32 products fit K4a's tolerance at the real widths,
-and K1's index handling at int64 against the JAX package.
+"""What the CPU can check of the K4a, K4c and K1 kernels' plans: the split
+of D over blocks, that 3xTF32 products fit K4a's and K4c's tolerances at the
+real widths, and K1's index handling at int64 against the JAX package.
 
 The kernels themselves run only on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
@@ -88,6 +88,53 @@ def test_3xtf32_fits_the_k4a_tolerance_and_one_tf32_product_does_not():
   torch.testing.assert_close(h_of(_3xtf32), want, rtol=1e-4, atol=1e-5)
   one_pass = h_of(lambda a, b: _tf32(a) @ _tf32(b))
   assert not torch.allclose(one_pass, want, rtol=1e-4, atol=1e-5)
+
+
+# --- K4c: its three products in 3xTF32 against float64 ------------------------
+
+
+def _k4c_outputs(product, we, be, wh, cos, s_emb, dh, s, mask):
+  """K4c's arithmetic with its products (te_pre, dhi, dwe) taken by
+  `product`; `mask` stands in for te_pre > 0, as the card checks hand the
+  kernel's own bits to the plain version."""
+  te_pre = product(cos, we) + be
+  dhi = product(dh, wh.t())
+  s_rows = s_emb.repeat_interleave(s, dim=0)
+  dte = torch.where(mask, dhi * s_rows, torch.zeros_like(dhi))
+  ds_emb = (dhi * torch.relu(te_pre)).reshape(-1, s, dhi.shape[1]).sum(1)
+  return product(cos.t(), dte), dte.sum(0), ds_emb
+
+
+def test_3xtf32_fits_the_k4c_tolerance_and_one_tf32_product_does_not():
+  """K4c's products at the real widths (latent 64, D = 3136, H = 512) over
+  1,024 rows, inputs as chip_smoke.py makes them: in 3xTF32 every output
+  holds the card check's tolerance against float64 (relative Frobenius 1e-4;
+  rtol 1e-4, atol 1e-5 x max|output|); with single TF32 products it does
+  not."""
+  rng = np.random.RandomState(1)
+  n = lambda *shape: torch.from_numpy(rng.randn(*shape).astype(np.float32))
+  b, s = 16, 64
+  we, be, wh = n(64, D) * 0.05, n(D) * 0.05, n(D, 512) * 0.015
+  cos, s_emb = n(b * s, 64), torch.relu(n(b, D))
+  dh = n(b * s, 512) * 0.05 * (n(b * s, 512) > 0)
+  args64 = [x.double() for x in (we, be, wh, cos, s_emb, dh)]
+  mask = (args64[3] @ args64[0] + args64[1]) > 0
+  want = _k4c_outputs(torch.matmul, *args64, s, mask)
+
+  def holds(got):
+    for g, w in zip(got, want):
+      g = g.double()
+      if not (torch.linalg.vector_norm(g - w)
+              <= 1e-4 * torch.linalg.vector_norm(w)):
+        return False
+      if not torch.allclose(g, w, rtol=1e-4, atol=1e-5 * float(w.abs().max())):
+        return False
+    return True
+
+  args = (we, be, wh, cos, s_emb, dh)
+  assert holds(_k4c_outputs(_3xtf32, *args, s, mask))
+  assert not holds(_k4c_outputs(lambda x, y: _tf32(x) @ _tf32(y), *args, s,
+                                mask))
 
 
 # --- K1: int64 indices, as the replay's sample path hands them in ------------

@@ -1,6 +1,8 @@
-"""Design checks for the port's K4a and K1 kernels on one card.
+"""Design checks for the port's K4a, K4c and K1 kernels on one card.
 
-  python tools/torch_kernel_variants.py
+  python tools/torch_kernel_variants.py [check ...]
+
+(checks: mma_peak k4a k4c k4c_parts k1; all by default.)
 
 Prints one JSON line per check, each time a device time from CUDA-graph
 replays (the host out of the way):
@@ -12,6 +14,17 @@ replays (the host out of the way):
             products added straight into the accumulator), at the act, eval,
             ragged and learn shapes: time, and the largest error of q and h
             as a share of the tolerance (rtol 1e-4, atol 1e-5);
+  K4C       K4c as built from csrc/iqn_head_bwd.cu against a variant with a
+            per-k-step fold (as dwe has) in its 512-deep product
+            dhi = dh @ wh^T, at the learn shape (B=1024, S=64, no dcos)
+            and the act shape (with dcos): time, and for each output its
+            relative Frobenius error and largest elementwise error as shares
+            of chip_smoke.py's tolerances (1e-4; rtol 1e-4, atol 1e-5 x
+            max|output|), against the plain version with the kernel's own
+            te_pre > 0 bits;
+  K4C_PARTS K4c at the learn shape with one phase cut out at a time (the
+            outputs are then wrong; only the time counts): where the time of
+            a 128-row step goes;
   K1        K1 against `index_select` on precomputed rows and a contiguous
             copy of the same bytes (the rate this mix of reads and writes
             reaches at best), rotating 8 index sets as chip_smoke.py does.
@@ -66,8 +79,11 @@ def build(name: str, source: str) -> ctypes.CDLL:
   OUT.mkdir(parents=True, exist_ok=True)
   cu, so = OUT / f"{name}.cu", OUT / f"{name}.so"
   cu.write_text(source)
-  subprocess.run([kernels.find_nvcc(), *kernels.NVCC_FLAGS, "-o", str(so),
-                  str(cu)], check=True, capture_output=True)
+  done = subprocess.run([kernels.find_nvcc(), *kernels.NVCC_FLAGS, "-I",
+                         str(kernels.CSRC), "-o", str(so), str(cu)],
+                        capture_output=True, text=True)
+  if done.returncode != 0:
+    raise SystemExit(f"nvcc failed on {cu}:\n{done.stdout}{done.stderr}")
   return ctypes.CDLL(str(so))
 
 
@@ -152,6 +168,117 @@ def k4a(dev, gen) -> None:
     del args, q, h, part, want_q, want_h
 
 
+def k4c(dev, gen) -> None:
+  src = (kernels.CSRC / "iqn_head_bwd.cu").read_text()
+  plain = "mma_3xtf32(acc"
+  if src.count(plain) != 2:
+    raise SystemExit("iqn_head_bwd.cu's dhi products are not as expected")
+  libs = {"kernel": k4c_build("iqn_head_bwd", src),
+          "dhi_fold": k4c_build("iqn_head_bwd_dhi_fold",
+                                src.replace(plain, "mma_3xtf32_rn(acc"))}
+  for b, s, need_dcos in [(1024, 64, False), (128, 64, True)]:
+    line = k4c_run(dev, gen, libs, b, s, need_dcos, check=True)
+    print("K4C " + json.dumps(line), flush=True)
+
+
+# K4c's phases, each cut out by replacing its text in the source.
+K4C_CUTS = {
+    "no_dh_copies": [("if (q + kStages - 1 < nchunks) copy_dh(q + kStages - 1);",
+                      "")],
+    "no_dhi_mma": [("mma_3xtf32(acc[j], a0b", "(void)(acc[j], a0b"),
+                   ("mma_3xtf32(acc_odd[j], a1b", "(void)(acc_odd[j], a1b")],
+    "no_te_pre_mma": [("mma_3xtf32(tp[j], ab, as, bb, bs);", "")],
+    "no_dwe_mma": [("mma_3xtf32_rn(dwe_acc[jj], ab, as, bb, bs);", "")],
+    "no_ds_emb_sums": [("k < nst; k += kWarps", "k < 0; k += kWarps")],
+    "no_semb_loads": [("sv[h][j] = __ldg(reinterpret_cast<const float2*>"
+                       "(sp + 8 * j));", "sv[h][j] = make_float2(1.f, 1.f);")],
+    "no_block_barriers": [("__syncthreads();  // step c's", "// step c's"),
+                          ("__syncthreads();\n\n    // dwe +=",
+                           "\n\n    // dwe +=")],
+}
+K4C_CUTS["no_splits"] = [  # raw bits as both parts: no split instructions
+    ("split_tf32(", "split_none("),
+    ('#include "tf32_mma.cuh"\n',
+     '#include "tf32_mma.cuh"\nnamespace { __device__ __forceinline__ void '
+     'split_none(float x, uint32_t& b, uint32_t& s) { b = s = '
+     '__float_as_uint(x); } }\n')]
+# Every phase but dhi's cut at once, with and without the splits.
+K4C_CUTS["dhi_only"] = [cut for name in ("no_te_pre_mma", "no_dwe_mma",
+                                         "no_ds_emb_sums", "no_semb_loads")
+                        for cut in K4C_CUTS[name]]
+K4C_CUTS["dhi_only_no_splits"] = K4C_CUTS["dhi_only"] + K4C_CUTS["no_splits"]
+
+
+def k4c_build(name: str, src: str) -> ctypes.CDLL:
+  lib = build(name, src)
+  lib.dz_iqn_head_bwd_d.argtypes = ih.BWD_D.argtypes
+  lib.dz_iqn_head_bwd_d.restype = ctypes.c_int
+  return lib
+
+
+def k4c_parts(dev, gen) -> None:
+  src = (kernels.CSRC / "iqn_head_bwd.cu").read_text()
+  libs = {"kernel": k4c_build("iqn_head_bwd", src)}
+  for name, cuts in K4C_CUTS.items():
+    cut = src
+    for old, new in cuts:
+      if old not in cut:
+        raise SystemExit(f"{name}: {old!r} is no longer in iqn_head_bwd.cu")
+      cut = cut.replace(old, new)
+    libs[name] = k4c_build(f"iqn_head_bwd_{name}", cut)
+  line = k4c_run(dev, gen, libs, 1024, 64, False, check=False)
+  print("K4C_PARTS " + json.dumps(line), flush=True)
+
+
+def k4c_run(dev, gen, libs, b, s, need_dcos, check):
+  """One timing (and, with `check`, the errors against the plain version)
+  per library in `libs`; returns the line."""
+  n = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+  d = 3136
+  we, be, wh = n(64, d) * 0.05, n(d) * 0.05, n(d, 512) * 0.015
+  cos_emb, s_emb = n(b, s, 64), torch.relu(n(b, d))
+  dh = n(b * s, 512) * 0.05 * (n(b * s, 512) > 0)
+  groups = ih.row_groups(b, s)
+  out = torch.empty(64 * d + d, device=dev)
+  part = torch.empty((groups, 64 * d + d), device=dev) if groups > 1 \
+      else None
+  ds_emb = torch.empty((b, d), device=dev)
+  dcos = torch.empty((b, s, 64), device=dev) if need_dcos else None
+  dcos_part = torch.empty((d // 32, b * s, 64), device=dev) \
+      if need_dcos else None
+  mask = torch.empty((b * s, d), dtype=torch.uint8, device=dev)
+  ptr = lambda x: None if x is None else x.data_ptr()
+  line = dict(shape=f"B={b} S={s}", groups=groups, dcos=need_dcos)
+  for name, lib in libs.items():
+    def call(m=None):
+      if lib.dz_iqn_head_bwd_d(
+          cos_emb.data_ptr(), s_emb.data_ptr(), dh.data_ptr(),
+          we.data_ptr(), be.data_ptr(), wh.data_ptr(), out.data_ptr(),
+          ptr(part), ds_emb.data_ptr(), ptr(dcos), ptr(dcos_part), ptr(m),
+          b, s, d, groups, kernels.stream_ptr(out.device)) != 0:
+        raise SystemExit(f"{name}: launch failed")
+    call(mask)
+    torch.cuda.synchronize()
+    if not check:
+      line[name] = dict(ms=graph_ms(call, n=5))
+      continue
+    got = [out[:64 * d].view(64, d).clone(), out[64 * d:].clone(),
+           ds_emb.clone()] + ([dcos.clone()] if need_dcos else [])
+    want = ih.iqn_head_bwd_d_plain(we, be, wh, cos_emb, s_emb, dh,
+                                   need_dcos=need_dcos, te_mask=mask)
+    errs = {}
+    for o, g, w in zip(("dwe", "dbe", "ds_emb", "dcos"), got, want):
+      fro = float(torch.linalg.vector_norm(g - w)
+                  / torch.linalg.vector_norm(w))
+      elem = float(((g - w).abs() / (1e-5 * w.abs().max()
+                                     + 1e-4 * w.abs())).max())
+      errs[o] = dict(frobenius_share_of_tolerance=fro / 1e-4,
+                     elementwise_share_of_tolerance=elem)
+    line[name] = dict(ms=graph_ms(call, n=5 if b == 1024 else 20), **errs)
+    del got, want
+  return line
+
+
 def k1(dev, gen) -> None:
   b, w, s, r = 1024, 5, 128, 2048
   frames = torch.randint(0, 256, (s, r, 84, 84), generator=gen, device=dev,
@@ -192,9 +319,13 @@ def main() -> int:
   dev = torch.device("cuda")
   gen = torch.Generator(device=dev)
   gen.manual_seed(0)
-  print("MMA_PEAK " + json.dumps(mma_peak(dev)), flush=True)
-  k4a(dev, gen)
-  k1(dev, gen)
+  checks = dict(mma_peak=lambda: print(
+      "MMA_PEAK " + json.dumps(mma_peak(dev)), flush=True),
+                k4a=lambda: k4a(dev, gen), k4c=lambda: k4c(dev, gen),
+                k4c_parts=lambda: k4c_parts(dev, gen),
+                k1=lambda: k1(dev, gen))
+  for name in sys.argv[1:] or checks:
+    checks[name]()
   return 0
 
 

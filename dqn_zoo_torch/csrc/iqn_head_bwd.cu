@@ -91,7 +91,7 @@
 // 18 KB + 8 warps x 4 ring buffers of 2 KB = 224 KB, one block per SM.
 // What sets the pace (K4C_PARTS in tools/torch_kernel_variants.py): the dhi
 // loop alone is three quarters of the time, and without any TF32 split it is
-// still 4.2 ms at the learn shape, ~47 % of the rate `mma.sync` reaches with
+// still 4.1 ms at the learn shape, ~48 % of the rate `mma.sync` reaches with
 // no operand traffic; `wgmma` is the next step.
 //
 // ReLU branch: te_pre is summed here in another order than a library product
@@ -127,6 +127,9 @@ constexpr int kCosS = kL + 4;
 constexpr int kDteS = kDC + 4;
 constexpr int kWeS = kDC + 8;
 constexpr int kRing = 16 * kKC;  // floats of one warp's ring buffer
+// The ring buffer of every step's last chunk, which holds g after the step.
+constexpr int kGBuf = (kChunks - 1) % kStages;
+static_assert(kChunks % kStages == 0, "every step's chunks fill whole rounds");
 constexpr int kSmemD = (kDC * kH + 2 * kRD * kCosS + kL * kWeS +
                         kRD * kDteS + kWarps * kStages * kRing + 2 * kDC) * 4;
 static_assert(kSmemD <= 232448, "K4c's shared memory exceeds the H100's");
@@ -442,8 +445,9 @@ iqn_head_bwd_d_kernel(const float* __restrict__ cosx,
 
     // dhi of the warp's rows, in the same accumulator positions, chunk by
     // chunk through the warp's ring (three chunks in flight). Even and odd
-    // k-steps go into two accumulators, added at the end: twice the
-    // independent mma chains, half as deep.
+    // k-steps go into two accumulators, added at the end: each then takes
+    // the tensor cores' truncating adds over half the k-steps, which halves
+    // the error that dhi, with no fold, carries into the outputs.
     float acc[4][4] = {}, acc_odd[4][4] = {};
     for (int kc = 0; kc < kChunks; ++kc) {
       const int q = c * kChunks + kc;
@@ -497,8 +501,7 @@ iqn_head_bwd_d_kernel(const float* __restrict__ cosx,
     // dcos; g for ds_emb in the ring buffer of the step's last chunk, which
     // every lane of the warp has left and no copy refills before the next
     // step (16 x 32, its columns XOR 8 (row & 3) to spread the stores).
-    float* g_w = ring + (warp * kStages + (c * kChunks + kChunks - 1) %
-                                              kStages) * kRing;
+    float* g_w = ring_w + kGBuf * kRing;
     __syncwarp();  // every lane has left the last chunk
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -560,7 +563,7 @@ iqn_head_bwd_d_kernel(const float* __restrict__ cosx,
     // last one's writes). Groups hold whole streams, so every stream ends
     // within its group.
     {
-      const float* g_s = ring + ((c * kChunks + kChunks - 1) % kStages) * kRing;
+      const float* g_s = ring + kGBuf * kRing;
       const int st0 = r0 / s;
       const int end = min(r0 + kRD, rows);
       const int nst = (end - 1) / s - st0 + 1;

@@ -2,7 +2,7 @@
 
   python tools/torch_kernel_variants.py [check ...]
 
-(checks: mma_peak k4a k4c k4c_parts k1; all by default.)
+(checks: mma_peak k4a k4c k4c_parts k4c_sass k1; all by default.)
 
 Prints one JSON line per check, each time a device time from CUDA-graph
 replays (the host out of the way):
@@ -23,8 +23,10 @@ replays (the host out of the way):
             max|output|), against the plain version with the kernel's own
             te_pre > 0 bits;
   K4C_PARTS K4c at the learn shape with one phase cut out at a time (the
-            outputs are then wrong; only the time counts): where the time of
-            a 128-row step goes;
+            outputs are then wrong; only the time counts), and with its TF32
+            splits on the FP32 pipe (Veltkamp's) or left out: where the time
+            of a 128-row step goes;
+  K4C_SASS  instructions and HMMA of K4c's loops that issue `mma`;
   K1        K1 against `index_select` on precomputed rows and a contiguous
             copy of the same bytes (the rate this mix of reads and writes
             reaches at best), rotating 8 index sets as chip_smoke.py does.
@@ -33,9 +35,11 @@ Needs a CUDA card and nvcc; builds into .torch_kernels/variants/.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -183,8 +187,8 @@ def k4c(dev, gen) -> None:
 
 # K4c's phases, each cut out by replacing its text in the source.
 K4C_CUTS = {
-    "no_dh_copies": [("if (q + kStages - 1 < nchunks) copy_dh(q + kStages - 1);",
-                      "")],
+    "no_dh_copies": [
+        ("if (q + kStages - 1 < nchunks) copy_dh(q + kStages - 1);", "")],
     "no_dhi_mma": [("mma_3xtf32(acc[j], a0b", "(void)(acc[j], a0b"),
                    ("mma_3xtf32(acc_odd[j], a1b", "(void)(acc_odd[j], a1b")],
     "no_te_pre_mma": [("mma_3xtf32(tp[j], ab, as, bb, bs);", "")],
@@ -196,6 +200,13 @@ K4C_CUTS = {
                           ("__syncthreads();\n\n    // dwe +=",
                            "\n\n    // dwe +=")],
 }
+K4C_CUTS["fp32_pipe_split"] = [  # Veltkamp's split on the FP32 pipe
+    ("split_tf32(", "split_fp32("),
+    ('#include "tf32_mma.cuh"\n',
+     '#include "tf32_mma.cuh"\nnamespace { __device__ __forceinline__ void '
+     'split_fp32(float x, uint32_t& b, uint32_t& s) { const float c = '
+     '__fmul_rn(x, 8193.f); const float h = __fsub_rn(c, __fsub_rn(c, x)); '
+     'b = __float_as_uint(h); s = __float_as_uint(__fsub_rn(x, h)); } }\n')]
 K4C_CUTS["no_splits"] = [  # raw bits as both parts: no split instructions
     ("split_tf32(", "split_none("),
     ('#include "tf32_mma.cuh"\n',
@@ -228,6 +239,31 @@ def k4c_parts(dev, gen) -> None:
     libs[name] = k4c_build(f"iqn_head_bwd_{name}", cut)
   line = k4c_run(dev, gen, libs, 1024, 64, False, check=False)
   print("K4C_PARTS " + json.dumps(line), flush=True)
+
+
+def k4c_sass(dev, gen) -> None:
+  """Instruction counts of K4c's loops that issue `mma` (SASS by cuobjdump
+  next to nvcc): per loop body, its instructions and its HMMA."""
+  del dev, gen
+  lib = OUT / "iqn_head_bwd.so"
+  k4c_build("iqn_head_bwd", (kernels.CSRC / "iqn_head_bwd.cu").read_text())
+  tool = os.path.join(os.path.dirname(kernels.find_nvcc()), "cuobjdump")
+  sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                        text=True, check=True).stdout
+  body = [f for f in re.split(r"\n\s*Function : ", sass)
+          if "iqn_head_bwd_d_kernel" in f.split("\n", 1)[0]][0]
+  op_re = r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)"
+  ins = [(int(a, 16), op) for a, op in re.findall(op_re, body)]
+  loops = []
+  for m in re.finditer(r"/\*([0-9a-f]{4,})\*/[^\n]*BRA[^\n]*?(0x[0-9a-f]+)",
+                       body):
+    end, start = int(m.group(1), 16), int(m.group(2), 16)
+    ops = [op for a, op in ins if start <= a <= end]
+    if start < end and "HMMA" in ops:
+      loops.append(dict(instructions=len(ops), hmma=ops.count("HMMA"),
+                        most=collections.Counter(ops).most_common(8)))
+  print("K4C_SASS " + json.dumps(dict(kernel_instructions=len(ins),
+                                      loops=loops)), flush=True)
 
 
 def k4c_run(dev, gen, libs, b, s, need_dcos, check):
@@ -323,6 +359,7 @@ def main() -> int:
       "MMA_PEAK " + json.dumps(mma_peak(dev)), flush=True),
                 k4a=lambda: k4a(dev, gen), k4c=lambda: k4c(dev, gen),
                 k4c_parts=lambda: k4c_parts(dev, gen),
+                k4c_sass=lambda: k4c_sass(dev, gen),
                 k1=lambda: k1(dev, gen))
   for name in sys.argv[1:] or checks:
     checks[name]()

@@ -5,7 +5,8 @@
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. build every CUDA kernel from dqn_zoo_torch/csrc (one nvcc per source,
      all in parallel) and print the build time and what `-Xptxas -v` says
-     of each kernel (registers, shared memory, spills);
+     of each kernel (registers, static shared memory, spills; K4b's and
+     K4c's dynamic shared memory beside it);
   2. hold each kernel against its plain PyTorch version at the main paths'
      shapes, and time kernel, plain version, library call and bound;
   3. drive the first main path — build_engine("dqn", "pong", num_envs=128,
@@ -392,8 +393,9 @@ def rel_frobenius(got, want) -> float:
 
 def check_head_backward(dev, gen, report, head_inputs):
   """K4b and K4c against their plain versions at the learn, act, eval and
-  ragged shapes, then the gradients of all eight arguments through the
-  autograd Function at the act shape."""
+  ragged shapes (and each against a second launch of itself, bit for bit),
+  then the gradients of all eight arguments through the autograd Function at
+  the act shape."""
   from dqn_zoo_torch.nets import iqn_head
 
   def w_library(we, be, cos_emb, s_emb, dh):
@@ -449,9 +451,16 @@ def check_head_backward(dev, gen, report, head_inputs):
       iters = 20 if small else 5
 
       w_args = (we, be, cos_emb, s_emb, dh)
-      err, fro = hold("K4b", shape, ("dwh", "dbh"),
-                      iqn_head.iqn_head_bwd_w(*w_args),
+      got = iqn_head.iqn_head_bwd_w(*w_args)
+      # Every sum over rows is taken in a fixed order: a second launch gives
+      # the same bits.
+      again = iqn_head.iqn_head_bwd_w(*w_args)
+      if not all(torch.equal(u, v) for u, v in zip(got, again)):
+        fail(f"K4b B={b} S={s}: two launches gave different bits")
+      del again
+      err, fro = hold("K4b", shape, ("dwh", "dbh"), got,
                       iqn_head.iqn_head_bwd_w_plain(*w_args), small)
+      del got
       nbytes, flops = iqn_head.bound_counts_bwd_w(b, s)
       line = report(
           "iqn_head_bwd_w", shape, err, tol,
@@ -459,7 +468,7 @@ def check_head_backward(dev, gen, report, head_inputs):
           time_ms(lambda: iqn_head.iqn_head_bwd_w_plain(*w_args),
                   iters=iters),
           time_ms(lambda: w_library(*w_args), iters=iters), nbytes, flops,
-          role=role, rel_frobenius_err=fro)
+          role=role, rel_frobenius_err=fro, bit_identical_repeat=True)
       if role == "learn":
         results["iqn_head_bwd_w"] = line
 
@@ -885,8 +894,18 @@ def main() -> int:
     k._func()
   print(f"BUILD {time.perf_counter() - t0:.2f} s "
         f"{json.dumps(built)}", flush=True)
+  # K4b's and K4c's blocks take dynamic shared memory, which ptxas does not
+  # count: their source reports it.
+  smem = kernels.load("iqn_head_bwd.cu").dz_iqn_head_bwd_smem
+  dynamic = {"iqn_head_bwd_w_kernel": smem(0),
+             "iqn_head_bwd_d_kernel": smem(1)}
   for source, log in sorted(kernels.BUILD_LOG.items()):
-    print(f"PTXAS {source} {json.dumps(ptxas_report(log))}", flush=True)
+    report = ptxas_report(log)
+    for entry in report:
+      for name, nbytes in dynamic.items():
+        if name in entry["function"]:
+          entry["dynamic_smem_bytes"] = nbytes
+    print(f"PTXAS {source} {json.dumps(report)}", flush=True)
 
   checks = phase_kernels(dev)
   # Each engine holds a 7 GB frame store: one path's state is dropped

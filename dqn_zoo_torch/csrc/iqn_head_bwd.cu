@@ -23,7 +23,7 @@
 // the loop is turned round: one block owns 32 columns of D (D / 32 = 98 at
 // D = 3136) and walks the rows in steps. Every sum over rows then lives in
 // one block from its first row to its last:
-//   K4b: the block's (32, 512) tile of dwh, 8 x 8 per thread;
+//   K4b: the block's (32, 512) tile of dwh, 32 x 64 per warp;
 //   K4c: its (64, 32) tile of dwe, its 32 entries of dbe and the running
 //        per-stream sum of ds_emb, written out whenever the stream index
 //        r / S changes (rows arrive in order, so any B and S are taken and a
@@ -45,16 +45,45 @@
 // is 237 GFLOP and K4c (without dcos) 263 GFLOP against 151 MB and 170 MB of
 // inputs.
 //
-// K4b runs on the CUDA cores: the thread's column of we (64 values) is kept
-// in registers for the whole walk, so the te recompute reads only broadcast
-// cosine rows from shared memory; cos and dh steps arrive by cp.async into a
-// second buffer under the arithmetic of the current step.
+// Both kernels run their products on the tensor cores in 3xTF32
+// (tf32_mma.cuh; `mma.sync.m16n8k8`, the path K4a takes).
 //
-// K4c runs its three products on the tensor cores in 3xTF32 (tf32_mma.cuh;
-// `mma.sync.m16n8k8`, the path K4a takes). A step is 128 rows; warp w owns
-// rows 16 w .. 16 w + 15 of it and all 32 columns (4 mma column tiles), so
-// each warp runs the full 512-deep product itself and nothing is added
-// across warps:
+// K4b. A step is 64 rows, 8 k-steps of dwh; warp w owns dwh's 32 rows (the
+// block's columns of D, 2 mma row tiles) x columns 64 w .. 64 w + 63 of H
+// (8 mma column tiles, 64 accumulators a lane), so each A fragment serves 8
+// tiles and each warp reads only its own 64 columns of dh:
+//   te_pre^T = we_tile^T @ cos^T   8 k-steps over latent 64 for the warp's 8
+//                                  rows of the step. Taken transposed, its
+//                                  accumulators at (column, row) are exactly
+//                                  dwh's A fragment of k-step w, so hi =
+//                                  relu(te_pre) * s_emb[r / S] is formed in
+//                                  registers, split once, and stored in
+//                                  fragment order (two 16-byte stores a
+//                                  lane) for all warps to load whole. we^T's
+//                                  fragments are split once for the walk;
+//   dwh += hi_step^T @ dh_step     8 k-steps over the step's rows; the warp's
+//                                  64 columns of dh arrive in chunks of 16
+//                                  rows through its own ring of 4 buffers
+//                                  (cp.async, 3 chunks in flight, no block
+//                                  barrier); hi has two buffers, so a step
+//                                  waits at one block barrier.
+// dwh sums over up to 16,384 rows per group, 2,048 k-steps. Every 4
+// k-steps (kFold) their products, summed in a zeroed tile, are folded into
+// dwh's accumulators with a rounding f32 add. On the card
+// (tools/torch_kernel_variants.py, K4B) a fold every 4 k-steps keeps dwh
+// within a tenth of its tolerance, as a fold every k-step does, and runs
+// 5-7 % faster; with no fold the tensor cores' truncating adds take dwh to
+// 2.6 times its elementwise tolerance.
+// dbh is each lane's register sum of its 8 columns of dh over its rows in
+// row order (blocks of column 0 only), added over the 4 lanes of a column
+// group at the end. K4b does not share K4c's te_pre code: K4c needs te_pre
+// at its dhi accumulators' positions, K4b transposed, at its A fragments'.
+// Shared memory: 8 warps x 4 ring buffers of 4 KB + hi 2 x 16 KB + we^T 16
+// KB + cosine rows 16 KB = 192 KB, one block per SM.
+//
+// K4c. A step is 128 rows; warp w owns rows 16 w .. 16 w + 15 of it and all
+// 32 columns (4 mma column tiles), so each warp runs the full 512-deep
+// product itself and nothing is added across warps:
 //   te_pre = cos_step @ we_tile   8 k-steps, from the step's cosine rows and
 //                                 the block's we tile in shared memory;
 //   dhi = dh_step @ wh_tile^T     64 k-steps; the block's 32 rows of wh stay
@@ -80,15 +109,19 @@
 // (tools/torch_kernel_variants.py, K4C).
 //
 // The reduction dimension of a product may be walked in any order as long as
-// both operands take the same one. K4c uses that to load fragments whole:
-// within 16 columns of dh (two k-steps), lane (g, t) takes columns 4t .. 4t+3
-// by one 16-byte load, the first two as k = t and t + 4 of the first k-step,
-// the last two of the second; wh's B fragments are read the same way. In
-// dwe's k-steps over rows, lane t takes rows 2t and 2t + 1. Shared-memory
+// both operands take the same one. Both kernels use that to load fragments
+// whole. In K4c, within 16 columns of dh (two k-steps), lane (g, t) takes
+// columns 4t .. 4t+3 by one 16-byte load, the first two as k = t and t + 4
+// of the first k-step, the last two of the second; wh's B fragments are read
+// the same way, and so are the cosine rows of K4b's te_pre^T. In the k-steps
+// over rows (dwe, dwh), lane t takes rows 2t and 2t + 1. In dwh the column
+// order is free as well: column 8g + n of the warp's is column g of tile n,
+// so a lane loads its 8 columns of a row in two 16-byte loads. Shared-memory
 // strides and XOR swizzles keep every fragment load free of bank conflicts.
 //
-// Shared memory: wh tile 64 KB + 2 x cosine step 34 KB + we tile 10 KB + dte
-// 18 KB + 8 warps x 4 ring buffers of 2 KB = 224 KB, one block per SM.
+// K4c's shared memory: wh tile 64 KB + 2 x cosine step 34 KB + we tile 10
+// KB + dte 18 KB + 8 warps x 4 ring buffers of 2 KB = 224 KB, one block per
+// SM.
 // What sets the pace (K4C_PARTS in tools/torch_kernel_variants.py): the dhi
 // loop alone is three quarters of the time, and without any TF32 split it is
 // still 4.1 ms at the learn shape, ~48 % of the rate `mma.sync` reaches with
@@ -113,9 +146,26 @@ constexpr int kL = 64;    // cosine features per tau sample
 constexpr int kH = 512;   // hidden width
 constexpr int kDC = 32;   // columns of D per block
 
-// K4b: rows per step, shared-memory floats.
-constexpr int kRW = 32;
-constexpr int kSmemW = (2 * kRW * kL + 2 * kRW * kH + kRW * kDC) * 4;
+// K4b: rows per step (8 a warp: one k-step of dwh each), rows of a dh chunk
+// (two k-steps), chunks per step, ring buffers per warp, dh columns per warp,
+// floats of one ring buffer and of one fragment tile (32 lanes x 4), and
+// k-steps whose products are summed before each rounding fold (0: no fold,
+// all products straight into the accumulator).
+constexpr int kRW = 8 * kWarps;
+constexpr int kWK = 16;
+constexpr int kWChunks = kRW / kWK;
+constexpr int kWStages = 4;  // a power of 2
+constexpr int kWCols = kH / kWarps;
+constexpr int kWRing = kWK * kWCols;
+constexpr int kFrag = 32 * 4;
+constexpr int kFold = 4;
+static_assert(kFold == 0 || (2 * kWChunks) % kFold == 0,
+              "a fold never straddles a step");
+// dh rings + hi fragments (2 steps x 8 k-steps x 2 row tiles x big, small)
+// + we^T fragments (2 row tiles x 8 k-steps x big, small) + cosine rows.
+constexpr int kSmemW = (kWarps * kWStages * kWRing + 2 * kWarps * 4 * kFrag +
+                        2 * 8 * 2 * kFrag + kWarps * 8 * kL) * 4;
+static_assert(kSmemW <= 232448, "K4b's shared memory exceeds the H100's");
 
 // K4c: rows per step (16 a warp), depth of a dh chunk, chunks per step, ring
 // buffers per warp, and padded row strides (see the bank notes at each use).
@@ -135,13 +185,6 @@ constexpr int kSmemD = (kDC * kH + 2 * kRD * kCosS + kL * kWeS +
 static_assert(kSmemD <= 232448, "K4c's shared memory exceeds the H100's");
 constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ void fma4(float* acc, float v, float4 w) {
-  acc[0] = fmaf(v, w.x, acc[0]);
-  acc[1] = fmaf(v, w.y, acc[1]);
-  acc[2] = fmaf(v, w.z, acc[2]);
-  acc[3] = fmaf(v, w.w, acc[3]);
-}
-
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
   acc = fmaf(a.y, b.y, acc);
@@ -155,37 +198,17 @@ __device__ __forceinline__ int group_begin(int g, int groups, int nb) {
   return (int)((long long)g * nb / groups);
 }
 
-// Starts `nrows` rows of `width` floats, from global row `row0` on, towards
-// shared rows of stride `stride`; rows past the end are zero-filled.
-template <int kWidth>
-__device__ __forceinline__ void fetch_rows(float* dst, int stride,
-                                           const float* src, int row0,
-                                           int nrows, int rows, int tid) {
-  constexpr int kVec = kWidth / 4;
-  for (int i = tid; i < nrows * kVec; i += kThreads) {
-    const int r = i / kVec, c4 = i % kVec;
-    float* p = dst + r * stride + 4 * c4;
-    if (row0 + r < rows)
-      cp_async16(p, src + (long long)(row0 + r) * kWidth + 4 * c4);
-    else
-      *reinterpret_cast<float4*>(p) = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-// te_pre of one row for this thread's column: bias + cos_row . we_column.
-__device__ __forceinline__ float te_pre_of(const float* cos_row,
-                                           const float (&wreg)[kL],
-                                           float bias) {
-  float t = bias;
-#pragma unroll
-  for (int l4 = 0; l4 < kL / 4; ++l4) {
-    const float4 cv = *reinterpret_cast<const float4*>(cos_row + 4 * l4);
-    t = fmaf(cv.x, wreg[4 * l4 + 0], t);
-    t = fmaf(cv.y, wreg[4 * l4 + 1], t);
-    t = fmaf(cv.z, wreg[4 * l4 + 2], t);
-    t = fmaf(cv.w, wreg[4 * l4 + 3], t);
-  }
-  return t;
+// Splits four values and stores them as one lane's fragment: the big parts
+// at `big`, the small parts kFrag floats on.
+__device__ __forceinline__ void store_frag(float* big, float a0, float a1,
+                                           float a2, float a3) {
+  uint4 b, s;
+  split_tf32(a0, b.x, s.x);
+  split_tf32(a1, b.y, s.y);
+  split_tf32(a2, b.z, s.z);
+  split_tf32(a3, b.w, s.w);
+  *reinterpret_cast<uint4*>(big) = b;
+  *reinterpret_cast<uint4*>(big + kFrag) = s;
 }
 
 // ---------------------------------------------------------------- K4b ------
@@ -199,100 +222,247 @@ iqn_head_bwd_w_kernel(const float* __restrict__ cosx,
                       float* __restrict__ out,  // [groups][d * 512 + 512]
                       int s, int nb, int d) {
   extern __shared__ __align__(16) float smem[];
-  float* cos_s = smem;                     // [2][kRW][kL]
-  float* dh_s = cos_s + 2 * kRW * kL;      // [2][kRW][kH]
-  float* hi_s = dh_s + 2 * kRW * kH;       // [kRW][kDC]
+  float* ring = smem;  // [kWarps][kWStages][kWK][kWCols], swizzled (below)
+  // hi in fragment order: [2 steps][8 k-steps][2 row tiles][big, small][kFrag]
+  float* hi_s = ring + kWarps * kWStages * kWRing;
+  // we^T in fragment order: [2 row tiles][8 k-steps][big, small][kFrag]
+  float* wef_s = hi_s + 2 * kWarps * 4 * kFrag;
+  float* cos_s = wef_s + 2 * 8 * 2 * kFrag;  // [kWarps][8][kL], swizzled
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const int d0 = blockIdx.x * kDC;
   // This block's group of streams, and its rows [row_lo, rows).
   const int row_lo = group_begin(blockIdx.y, gridDim.y, nb) * s;
   const int rows = group_begin(blockIdx.y + 1, gridDim.y, nb) * s;
   const int nsteps = (rows - row_lo + kRW - 1) / kRW;
+  const int nchunks = nsteps * kWChunks;
 
-  auto prefetch = [&](int c) {
-    const int buf = c & 1;
-    const int r0 = row_lo + c * kRW;
-    fetch_rows<kL>(cos_s + buf * kRW * kL, kL, cosx, r0, kRW, rows, tid);
-    fetch_rows<kH>(dh_s + buf * kRW * kH, kH, dh, r0, kRW, rows, tid);
-    cp_async_commit();
+  // The warp's 8 cosine rows of step c (rows 8 warp .. + 7 of the step),
+  // each keeping its 16-byte piece p at p ^ 4 (r & 1), so that te_pre's
+  // reads (row g, piece 4 p' + t) fall on 8 bank groups per quarter-warp.
+  // Lane (crow, cp) copies piece cp of rows crow + 2 u. Rows past the
+  // group's end are zero-filled.
+  float* const cos_w = cos_s + warp * 8 * kL;
+  const int cp = lane & 15, crow = lane >> 4;
+  auto copy_cos = [&](int c) {
+    const int r = row_lo + c * kRW + 8 * warp + crow;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const bool in = r + 2 * u < rows;
+      cp_async16_zfill(cos_w + (crow + 2 * u) * kL + 4 * (cp ^ (crow << 2)),
+                       in ? cosx + (long long)(r + 2 * u) * kL + 4 * cp : cosx,
+                       in ? 16 : 0);
+    }
   };
-  prefetch(0);
+  // Chunk q (step q / kWChunks, rows kWK (q % kWChunks) .. + 15 of it) of
+  // the warp's 64 columns of dh towards its ring buffer q % kWStages. Row r
+  // of a chunk keeps its piece p at p ^ f(r), f(r) = bit 1 of r | bit 2 of r
+  // << 2, so that the B reads (rows 2t and 2t + 1, pieces 2g and 2g + 1)
+  // fall on 8 bank groups per quarter-warp.
+  float* const ring_w = ring + warp * kWStages * kWRing;
+  auto copy_dh = [&](int q) {
+    const int r = row_lo + (q / kWChunks) * kRW + kWK * (q % kWChunks) + crow;
+    const float* src = dh + (long long)r * kH + kWCols * warp + 4 * cp;
+    float* dst = ring_w + (q % kWStages) * kWRing + crow * kWCols;
+#pragma unroll
+    for (int u = 0; u < kWK / 2; ++u) {
+      const bool in = r + 2 * u < rows;
+      cp_async16_zfill(
+          dst + 2 * u * kWCols + 4 * (cp ^ ((u & 1) | ((u & 2) << 1))),
+          in ? src + 2 * u * kH : dh, in ? 16 : 0);
+    }
+  };
+  copy_cos(0);
+  cp_async_commit();
+  for (int q = 0; q < kWStages - 1; ++q) {  // nchunks >= kWChunks >= kWStages
+    copy_dh(q);
+    cp_async_commit();
+  }
 
-  // This thread's column d0 + lane of we and be, for the whole walk.
-  float wreg[kL];
+  // te_pre^T = we_tile^T @ cos_step^T has the block's 32 columns of D as its
+  // rows (row tile i: columns 16 i .. + 15) and latent k-steps ordered so
+  // that the cosine reads load whole: k-step 2 p + h takes latent 16 p + 4 t
+  // + 2 h as k = t and the next one as k = t + 4. Its A fragments are split
+  // once, here, for the whole walk.
+  for (int e = tid; e < 2 * 8 * 32; e += kThreads) {
+    const int ln = e & 31, kl = (e >> 5) & 7, i = e >> 8;
+    const int l0 = 16 * (kl >> 1) + 4 * (ln & 3) + 2 * (kl & 1);
+    const float* w0 = we + (long long)l0 * d + d0 + 16 * i + (ln >> 2);
+    store_frag(wef_s + (i * 8 + kl) * 2 * kFrag + 4 * ln, __ldg(w0),
+               __ldg(w0 + 8), __ldg(w0 + d), __ldg(w0 + d + 8));
+  }
+  // be at this lane's te_pre^T rows: columns 16 i + g and + 8.
+  float bias[2][2];
 #pragma unroll
-  for (int l = 0; l < kL; ++l) wreg[l] = __ldg(we + (long long)l * d + d0 + lane);
-  const float bias = __ldg(be + d0 + lane);
+  for (int i = 0; i < 2; ++i) {
+    bias[i][0] = __ldg(be + d0 + 16 * i + g);
+    bias[i][1] = __ldg(be + d0 + 16 * i + g + 8);
+  }
+  // This lane's B values in a ring buffer: rows 2t and 2t + 1, logical
+  // pieces 2g and 2g + 1, i.e. the warp's columns 8g .. 8g + 7. Column 8g + n
+  // is column g of mma tile n, so the lane's accumulators of tile n hold
+  // the warp's columns 16 t + n (2t) and 16 t + 8 + n (2t + 1).
+  const int fsw = (t & 1) | ((t & 2) << 1);
+  const int off0 = 2 * t * kWCols + 4 * ((2 * g) ^ fsw);
+  const int off1 = 2 * t * kWCols + 4 * ((2 * g + 1) ^ fsw);
+  cp_async_wait<kWStages - 1>();
+  __syncthreads();  // we^T's fragments are in, and every warp's cosine rows
 
-  // Product phase: warp (dg, hh) owns dwh rows d0 + 8 dg .. + 7 and columns
-  // 256 hh + {4 lane .. + 3} and + 128: head-input reads are broadcasts,
-  // dh reads conflict-free float4s.
-  const int dg = warp & 3, hh = warp >> 2;
-  const bool sums_dbh = blockIdx.x == 0 && dg == 0;
-  float* dwh = out + (long long)blockIdx.y * ((long long)d * kH + kH);
-  float* dbh = dwh + (long long)d * kH;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  float bsum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  // Walk-long sums: the warp's (32, 64) tile of dwh as 2 x 8 mma tiles, and
+  // in the blocks of column 0 this lane's share of dbh: its 8 columns
+  // summed over its rows 2t, 2t + 1 of every k-step, in row order.
+  const bool sums_dbh = blockIdx.x == 0;
+  float acc[2][8][4] = {};
+  float pend[2][8][4] = {};  // products since the last fold
+  float bsum[8] = {};
 
   for (int c = 0; c < nsteps; ++c) {
-    cp_async_wait_all();
-    __syncthreads();  // step c has landed; everyone has left step c - 1
-    if (c + 1 < nsteps) prefetch(c + 1);
-    const int buf = c & 1;
     const int r0 = row_lo + c * kRW;
+    float* const hi_c = hi_s + (c & 1) * kWarps * 4 * kFrag;
 
-    // hi for rows 4 warp .. + 3 of the step, column lane of the tile.
+    // hi of the warp's 8 rows as dwh's A fragments of k-step `warp`: the
+    // accumulators of te_pre^T at (column g, row 2t), (g, 2t + 1), (g + 8,
+    // 2t), (g + 8, 2t + 1) are that fragment's a0, a2, a1, a3. Even and odd
+    // latent k-steps go into two accumulators.
+    {
+      const int ra = r0 + 8 * warp + 2 * t;
+      int sa = ra / s, sb = (ra + 1) / s;
+      sa = sa < nb ? sa : nb - 1;  // rows past the end: dh is zero there
+      sb = sb < nb ? sb : nb - 1;
+      float se[2][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * warp + i;
-      const float t = te_pre_of(cos_s + (buf * kRW + r) * kL, wreg, bias);
-      int st = (r0 + r) / s;
-      st = st < nb ? st : nb - 1;  // rows past the end: dh is zero there
-      hi_s[r * kDC + lane] =
-          fmaxf(t, 0.f) * __ldg(semb + (long long)st * d + d0 + lane);
-    }
-    __syncthreads();
-
-    const float* hb = hi_s + 8 * dg;
-    const float* db = dh_s + buf * kRW * kH + 256 * hh + 4 * lane;
-#pragma unroll 4
-    for (int r = 0; r < kRW; ++r) {
-      const float4 a0 = *reinterpret_cast<const float4*>(hb + r * kDC);
-      const float4 a1 = *reinterpret_cast<const float4*>(hb + r * kDC + 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(db + r * kH);
-      const float4 b1 = *reinterpret_cast<const float4*>(db + r * kH + 128);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        fma4(&acc[i][0], av[i], b0);
-        fma4(&acc[i][4], av[i], b1);
+      for (int i = 0; i < 2; ++i) {
+        const float* p = semb + d0 + 16 * i + g;
+        se[i][0] = __ldg(p + (long long)sa * d);
+        se[i][1] = __ldg(p + (long long)sb * d);
+        se[i][2] = __ldg(p + (long long)sa * d + 8);
+        se[i][3] = __ldg(p + (long long)sb * d + 8);
       }
-      if (sums_dbh) {
-        bsum[0] += b0.x; bsum[1] += b0.y; bsum[2] += b0.z; bsum[3] += b0.w;
-        bsum[4] += b1.x; bsum[5] += b1.y; bsum[6] += b1.z; bsum[7] += b1.w;
+      float tp[2][2][4] = {};
+      const float* cr = cos_w + g * kL;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const float4 x = *reinterpret_cast<const float4*>(
+            cr + 4 * ((4 * p + t) ^ ((g & 1) << 2)));
+        uint32_t bb[2][2], bs[2][2];
+        split_tf32(x.x, bb[0][0], bs[0][0]);
+        split_tf32(x.y, bb[0][1], bs[0][1]);
+        split_tf32(x.z, bb[1][0], bs[1][0]);
+        split_tf32(x.w, bb[1][1], bs[1][1]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int f = (i * 8 + 2 * p + h) * 2;
+            uint32_t ab[4], as[4];
+            load_a(ab, wef_s, f, lane);
+            load_a(as, wef_s, f + 1, lane);
+            mma_3xtf32(tp[i][h], ab, as, bb[h], bs[h]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float e[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          e[k] = fmaxf(tp[i][0][k] + tp[i][1][k] + bias[i][k >> 1], 0.f) *
+                 se[i][k];
+        store_frag(hi_c + (warp * 2 + i) * 2 * kFrag + 4 * lane, e[0], e[2],
+                   e[1], e[3]);
+      }
+    }
+    __syncthreads();  // the step's hi is in; everyone has left step c - 1
+
+    // dwh += hi_step^T @ dh_step: 8 k-steps of 8 rows, two per dh chunk,
+    // the chunks through the warp's ring (three in flight). Lane t takes
+    // rows 2t (k = t) and 2t + 1 (k = t + 4) of a k-step, in A and B alike.
+#pragma unroll 1
+    for (int kc = 0; kc < kWChunks; ++kc) {
+      const int q = c * kWChunks + kc;
+      cp_async_wait<kWStages - 2>();
+      __syncwarp();  // chunk q has landed for every lane; all have left q - 1
+      if (q + kWStages - 1 < nchunks) copy_dh(q + kWStages - 1);
+      if (kc == 0 && c + 1 < nsteps) copy_cos(c + 1);
+      cp_async_commit();
+      const float* rb = ring_w + (q % kWStages) * kWRing;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int j = 2 * kc + u;  // k-step of the step
+        uint32_t ab[2][4], as[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          load_a(ab[i], hi_c, (j * 2 + i) * 2, lane);
+          load_a(as[i], hi_c, (j * 2 + i) * 2 + 1, lane);
+        }
+        const float* r = rb + 8 * u * kWCols;
+        const float4 x0 = *reinterpret_cast<const float4*>(r + off0);
+        const float4 x1 = *reinterpret_cast<const float4*>(r + off1);
+        const float4 y0 = *reinterpret_cast<const float4*>(r + kWCols + off0);
+        const float4 y1 = *reinterpret_cast<const float4*>(r + kWCols + off1);
+        const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+        const float yv[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          uint32_t bb[2], bs[2];
+          split_tf32(xv[n], bb[0], bs[0]);
+          split_tf32(yv[n], bb[1], bs[1]);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            mma_3xtf32(kFold ? pend[i][n] : acc[i][n], ab[i], as[i], bb, bs);
+        }
+        if (kFold && (j + 1) % kFold == 0)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int n = 0; n < 8; ++n)
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                acc[i][n][k] += pend[i][n][k];
+                pend[i][n][k] = 0.f;
+              }
+        if (sums_dbh)
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            bsum[n] += xv[n];
+            bsum[n] += yv[n];
+          }
       }
     }
   }
 
+  // The warp's tile: rows d0 + 16 i + g (+ 8), columns 64 warp + 16 t .. +
+  // 15 (accumulator column 2t of tiles 0 .. 7, then 2t + 1 of them).
+  float* dwh = out + (long long)blockIdx.y * ((long long)d * kH + kH);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float* p = dwh + (long long)(d0 + 8 * dg + i) * kH + 256 * hh + 4 * lane;
-    *reinterpret_cast<float4*>(p) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    *reinterpret_cast<float4*>(p + 128) =
-        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-  }
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* p = dwh + (long long)(d0 + 16 * i + g + 8 * h) * kH +
+                 kWCols * warp + 16 * t;
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int k = 2 * h + (v >> 1), n = 4 * (v & 1);
+        *reinterpret_cast<float4*>(p + 4 * v) =
+            make_float4(acc[i][n][k], acc[i][n + 1][k], acc[i][n + 2][k],
+                        acc[i][n + 3][k]);
+      }
+    }
+  // dbh: the four lanes t of a column group add their sums (a butterfly:
+  // every lane ends with the same bits), and lane t = 0 writes them.
   if (sums_dbh) {
-    float* p = dbh + 256 * hh + 4 * lane;
-    *reinterpret_cast<float4*>(p) =
-        make_float4(bsum[0], bsum[1], bsum[2], bsum[3]);
-    *reinterpret_cast<float4*>(p + 128) =
-        make_float4(bsum[4], bsum[5], bsum[6], bsum[7]);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      bsum[n] += __shfl_xor_sync(0xffffffffu, bsum[n], 1);
+      bsum[n] += __shfl_xor_sync(0xffffffffu, bsum[n], 2);
+    }
+    if (t == 0) {
+      float* p = dwh + (long long)d * kH + kWCols * warp + 8 * g;
+      *reinterpret_cast<float4*>(p) =
+          make_float4(bsum[0], bsum[1], bsum[2], bsum[3]);
+      *reinterpret_cast<float4*>(p + 4) =
+          make_float4(bsum[4], bsum[5], bsum[6], bsum[7]);
+    }
   }
 }
 
@@ -662,6 +832,23 @@ cudaError_t sum_partials(const void* part, void* out, long long n,
   return cudaGetLastError();
 }
 
+// Raises `kernel`'s dynamic shared-memory limit to `bytes`, once per device
+// (`done` is the caller's per-device flag).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    done[dev] = true;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // cos (b*s, 64), semb (b, d), dh (b*s, 512), we (64, d), be (d) -> out, one
@@ -675,9 +862,8 @@ extern "C" int dz_iqn_head_bwd_w(const void* cos, const void* semb,
                                  int b, int s, int d, int groups,
                                  void* cuda_stream) {
   cudaStream_t st = (cudaStream_t)cuda_stream;
-  cudaError_t err = cudaFuncSetAttribute(
-      iqn_head_bwd_w_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemW);
+  static bool smem_set[kMaxDevices];
+  cudaError_t err = allow_smem(iqn_head_bwd_w_kernel, kSmemW, smem_set);
   if (err != cudaSuccess) return (int)err;
   iqn_head_bwd_w_kernel<<<dim3(d / kDC, groups), kThreads, kSmemW, st>>>(
       (const float*)cos, (const float*)semb, (const float*)dh,
@@ -701,18 +887,9 @@ extern "C" int dz_iqn_head_bwd_d(const void* cos, const void* semb,
                                  void* dcos_part, void* te_mask, int b, int s,
                                  int d, int groups, void* cuda_stream) {
   cudaStream_t st = (cudaStream_t)cuda_stream;
-  static bool smem_set[kMaxDevices];  // per device, once
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static bool smem_set[kMaxDevices];
+  cudaError_t err = allow_smem(iqn_head_bwd_d_kernel, kSmemD, smem_set);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(iqn_head_bwd_d_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemD);
-    if (err != cudaSuccess) return (int)err;
-    smem_set[dev] = true;
-  }
   iqn_head_bwd_d_kernel<<<dim3(d / kDC, groups), kThreads, kSmemD, st>>>(
       (const float*)cos, (const float*)semb, (const float*)dh,
       (const float*)we, (const float*)be, (const float*)wh,
@@ -724,4 +901,10 @@ extern "C" int dz_iqn_head_bwd_d(const void* cos, const void* semb,
   if (err == cudaSuccess && dcos != nullptr)
     err = sum_partials(dcos_part, dcos, (long long)b * s * kL, d / kDC, st);
   return (int)err;
+}
+
+// Bytes of dynamic shared memory a block of K4b (kernel 0) or K4c (1) takes,
+// for the build report beside `-Xptxas -v`'s static counts.
+extern "C" int dz_iqn_head_bwd_smem(int kernel) {
+  return kernel ? kSmemD : kSmemW;
 }

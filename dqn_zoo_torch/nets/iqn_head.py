@@ -21,8 +21,9 @@ the wo-layer gradients dwo, dbo and dh = (dq @ woᵀ)·(h > 0) are plain ops on
 the saved h; then, from dh and the recomputed te and hi,
   K4b `iqn_head_bwd_w`: dwh = hiᵀ @ dh, dbh = Σ_rows dh;
   K4c `iqn_head_bwd_d`: dhi = dh @ whᵀ, ds_emb, dte, dwe, dbe and, when the
-      cosine features want a gradient, dcos; its products (te_pre, dhi,
-      dwe) run on the tensor cores in 3xTF32, as K4a's do.
+      cosine features want a gradient, dcos.
+Both run their products (te_pre and dwh; te_pre, dhi and dwe) on the tensor
+cores in 3xTF32, as K4a does.
 In all three the (rows, D) intermediates never reach device memory. The
 kernels index s_emb[row // S] directly, so they take any B, S, A >= 1; the
 latent width (64), the hidden width (512) and D a multiple of 32 are fixed

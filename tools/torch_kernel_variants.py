@@ -1,8 +1,9 @@
-"""Design checks for the port's K4a, K4c and K1 kernels on one card.
+"""Design checks for the port's K4a, K4b, K4c and K1 kernels on one card.
 
   python tools/torch_kernel_variants.py [check ...]
 
-(checks: mma_peak k4a k4c k4c_parts k4c_sass k1; all by default.)
+(checks: mma_peak k4a k4b k4b_parts k4c k4c_parts k4c_sass k1; all by
+default.)
 
 Prints one JSON line per check, each time a device time from CUDA-graph
 replays (the host out of the way):
@@ -14,6 +15,18 @@ replays (the host out of the way):
             products added straight into the accumulator), at the act, eval,
             ragged and learn shapes: time, and the largest error of q and h
             as a share of the tolerance (rtol 1e-4, atol 1e-5);
+  K4B       K4b as built from csrc/iqn_head_bwd.cu (a rounding fold of dwh's
+            products every 4 k-steps) against variants that fold every
+            k-step, every 2 or never (all products straight into the
+            accumulator), at the learn shape (B=1024, S=64) and the act
+            shape: time, and for dwh and dbh the relative Frobenius error
+            and largest elementwise error as shares of chip_smoke.py's
+            tolerances (1e-4; rtol 1e-4, atol 1e-5 x max|output|) against
+            the plain version;
+  K4B_PARTS K4b at the learn shape with one phase cut out at a time (the
+            outputs are then wrong; only the time counts): te_pre's
+            products, dwh's products, the dh copies, the TF32 splits, the
+            fold, the block barrier;
   K4C       K4c as built from csrc/iqn_head_bwd.cu against a variant with a
             per-k-step fold (as dwe has) in its 512-deep product
             dhi = dh @ wh^T, at the learn shape (B=1024, S=64, no dcos)
@@ -177,8 +190,8 @@ def k4c(dev, gen) -> None:
   plain = "mma_3xtf32(acc"
   if src.count(plain) != 2:
     raise SystemExit("iqn_head_bwd.cu's dhi products are not as expected")
-  libs = {"kernel": k4c_build("iqn_head_bwd", src),
-          "dhi_fold": k4c_build("iqn_head_bwd_dhi_fold",
+  libs = {"kernel": bwd_build("iqn_head_bwd", src),
+          "dhi_fold": bwd_build("iqn_head_bwd_dhi_fold",
                                 src.replace(plain, "mma_3xtf32_rn(acc"))}
   for b, s, need_dcos in [(1024, 64, False), (128, 64, True)]:
     line = k4c_run(dev, gen, libs, b, s, need_dcos, check=True)
@@ -220,23 +233,115 @@ K4C_CUTS["dhi_only"] = [cut for name in ("no_te_pre_mma", "no_dwe_mma",
 K4C_CUTS["dhi_only_no_splits"] = K4C_CUTS["dhi_only"] + K4C_CUTS["no_splits"]
 
 
-def k4c_build(name: str, src: str) -> ctypes.CDLL:
+K4B_FOLD = "constexpr int kFold = 4;"
+
+
+def k4b(dev, gen) -> None:
+  src = (kernels.CSRC / "iqn_head_bwd.cu").read_text()
+  if K4B_FOLD not in src:
+    raise SystemExit("iqn_head_bwd.cu no longer folds dwh every 4 k-steps")
+  libs = {"kernel": bwd_build("iqn_head_bwd", src)}
+  for every in (1, 2, 0):
+    libs[f"fold_{every}" if every else "no_fold"] = bwd_build(
+        f"iqn_head_bwd_fold{every}",
+        src.replace(K4B_FOLD, f"constexpr int kFold = {every};"))
+  for b, s in [(1024, 64), (128, 64)]:
+    print("K4B " + json.dumps(k4b_run(dev, gen, libs, b, s, check=True)),
+          flush=True)
+
+
+# K4b's phases, each cut out by replacing its text in the source.
+K4B_CUTS = {
+    "no_te_pre_mma": [("mma_3xtf32(tp[i][h], ab, as, bb[h], bs[h]);", "")],
+    "no_dwh_mma": [("mma_3xtf32(kFold ? pend[i][n] : acc[i][n], ab[i], as[i],"
+                    " bb, bs);", ";")],
+    "no_dh_copies": [
+        ("if (q + kWStages - 1 < nchunks) copy_dh(q + kWStages - 1);", "")],
+    "no_splits": K4C_CUTS["no_splits"],
+    "no_fold": [(K4B_FOLD, "constexpr int kFold = 0;")],
+    "no_block_barrier": [("__syncthreads();  // the step's hi is in",
+                          "// the step's hi is in")],
+}
+
+
+def k4b_parts(dev, gen) -> None:
+  src = (kernels.CSRC / "iqn_head_bwd.cu").read_text()
+  libs = {"kernel": bwd_build("iqn_head_bwd", src)}
+  for name, cuts in K4B_CUTS.items():
+    cut = src
+    for old, new in cuts:
+      if old not in cut:
+        raise SystemExit(f"{name}: {old!r} is no longer in iqn_head_bwd.cu")
+      cut = cut.replace(old, new)
+    libs[name] = bwd_build(f"iqn_head_bwd_w_{name}", cut)
+  print("K4B_PARTS " + json.dumps(k4b_run(dev, gen, libs, 1024, 64,
+                                          check=False)), flush=True)
+
+
+def k4b_run(dev, gen, libs, b, s, check):
+  """One timing (and, with `check`, the errors against the plain version)
+  per library in `libs`; returns the line."""
+  n = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+  d = 3136
+  we, be = n(64, d) * 0.05, n(d) * 0.05
+  cos_emb, s_emb = n(b, s, 64), torch.relu(n(b, d))
+  dh = n(b * s, 512) * 0.05 * (n(b * s, 512) > 0)
+  groups = ih.row_groups(b, s)
+  out = torch.empty(d * 512 + 512, device=dev)
+  part = torch.empty((groups, d * 512 + 512), device=dev) if groups > 1 \
+      else None
+  want = ih.iqn_head_bwd_w_plain(we, be, cos_emb, s_emb, dh) if check \
+      else None
+  line = dict(shape=f"B={b} S={s}", groups=groups)
+  for name, lib in libs.items():
+    def call():
+      if lib.dz_iqn_head_bwd_w(
+          cos_emb.data_ptr(), s_emb.data_ptr(), dh.data_ptr(),
+          we.data_ptr(), be.data_ptr(), out.data_ptr(),
+          None if part is None else part.data_ptr(), b, s, d, groups,
+          kernels.stream_ptr(out.device)) != 0:
+        raise SystemExit(f"{name}: launch failed")
+    call()
+    torch.cuda.synchronize()
+    line[name] = dict(ms=graph_ms(call, n=5 if b == 1024 else 20))
+    if check:
+      got = (out[:d * 512].view(d, 512), out[d * 512:])
+      for o, g, w in zip(("dwh", "dbh"), got, want):
+        line[name][o] = error_shares(g, w)
+  return line
+
+
+def error_shares(got, want) -> dict:
+  """The relative Frobenius error and the largest elementwise error as
+  shares of chip_smoke.py's tolerances."""
+  fro = float(torch.linalg.vector_norm(got - want)
+              / torch.linalg.vector_norm(want))
+  elem = float(((got - want).abs() / (1e-5 * want.abs().max()
+                                      + 1e-4 * want.abs())).max())
+  return dict(frobenius_share_of_tolerance=fro / 1e-4,
+              elementwise_share_of_tolerance=elem)
+
+
+
+def bwd_build(name: str, src: str) -> ctypes.CDLL:
+  """A variant of iqn_head_bwd.cu, with K4b's and K4c's entries typed."""
   lib = build(name, src)
-  lib.dz_iqn_head_bwd_d.argtypes = ih.BWD_D.argtypes
-  lib.dz_iqn_head_bwd_d.restype = ctypes.c_int
+  for kernel in (ih.BWD_W, ih.BWD_D):
+    getattr(lib, kernel.symbol).argtypes = kernel.argtypes
+    getattr(lib, kernel.symbol).restype = ctypes.c_int
   return lib
 
 
 def k4c_parts(dev, gen) -> None:
   src = (kernels.CSRC / "iqn_head_bwd.cu").read_text()
-  libs = {"kernel": k4c_build("iqn_head_bwd", src)}
+  libs = {"kernel": bwd_build("iqn_head_bwd", src)}
   for name, cuts in K4C_CUTS.items():
     cut = src
     for old, new in cuts:
       if old not in cut:
         raise SystemExit(f"{name}: {old!r} is no longer in iqn_head_bwd.cu")
       cut = cut.replace(old, new)
-    libs[name] = k4c_build(f"iqn_head_bwd_{name}", cut)
+    libs[name] = bwd_build(f"iqn_head_bwd_{name}", cut)
   line = k4c_run(dev, gen, libs, 1024, 64, False, check=False)
   print("K4C_PARTS " + json.dumps(line), flush=True)
 
@@ -246,7 +351,7 @@ def k4c_sass(dev, gen) -> None:
   next to nvcc): per loop body, its instructions and its HMMA."""
   del dev, gen
   lib = OUT / "iqn_head_bwd.so"
-  k4c_build("iqn_head_bwd", (kernels.CSRC / "iqn_head_bwd.cu").read_text())
+  bwd_build("iqn_head_bwd", (kernels.CSRC / "iqn_head_bwd.cu").read_text())
   tool = os.path.join(os.path.dirname(kernels.find_nvcc()), "cuobjdump")
   sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                         text=True, check=True).stdout
@@ -302,14 +407,8 @@ def k4c_run(dev, gen, libs, b, s, need_dcos, check):
            ds_emb.clone()] + ([dcos.clone()] if need_dcos else [])
     want = ih.iqn_head_bwd_d_plain(we, be, wh, cos_emb, s_emb, dh,
                                    need_dcos=need_dcos, te_mask=mask)
-    errs = {}
-    for o, g, w in zip(("dwe", "dbe", "ds_emb", "dcos"), got, want):
-      fro = float(torch.linalg.vector_norm(g - w)
-                  / torch.linalg.vector_norm(w))
-      elem = float(((g - w).abs() / (1e-5 * w.abs().max()
-                                     + 1e-4 * w.abs())).max())
-      errs[o] = dict(frobenius_share_of_tolerance=fro / 1e-4,
-                     elementwise_share_of_tolerance=elem)
+    errs = {o: error_shares(g, w)
+            for o, g, w in zip(("dwe", "dbe", "ds_emb", "dcos"), got, want)}
     line[name] = dict(ms=graph_ms(call, n=5 if b == 1024 else 20), **errs)
     del got, want
   return line
@@ -357,7 +456,9 @@ def main() -> int:
   gen.manual_seed(0)
   checks = dict(mma_peak=lambda: print(
       "MMA_PEAK " + json.dumps(mma_peak(dev)), flush=True),
-                k4a=lambda: k4a(dev, gen), k4c=lambda: k4c(dev, gen),
+                k4a=lambda: k4a(dev, gen), k4b=lambda: k4b(dev, gen),
+                k4b_parts=lambda: k4b_parts(dev, gen),
+                k4c=lambda: k4c(dev, gen),
                 k4c_parts=lambda: k4c_parts(dev, gen),
                 k4c_sass=lambda: k4c_sass(dev, gen),
                 k1=lambda: k1(dev, gen))

@@ -257,23 +257,28 @@ def phase_kernels(dev):
       h = torch.relu(torch.nn.functional.conv2d(h, wt, bias, stride=st))
     return h
 
-  # K3a at B = 128 (act) and B = 1024 (target). f32 both sides, TF32 off:
-  # the sums differ only in order, so rtol 1e-4 holds with room.
-  for b in (128, 1024):
+  # K3a at B = 4 (eval), 128 (act) and 1024 (target). The kernel's products
+  # run in 3xTF32 (f32-accurate), the plain version's in f32 with TF32 off:
+  # the sums differ in order and rounding, so rtol 1e-4 holds with room.
+  # Two launches give the same bits.
+  for b in (4, 128, 1024):
     x = torch.randint(0, 256, (b, 84, 84, 4), generator=gen, device=dev,
                       dtype=torch.uint8)
     with torch.no_grad():
       got = torso_cuda.dqn_torso(*ws, x)
       want = torso_cuda.torso_plain(*ws, x)
       torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+      if not torch.equal(got, torso_cuda.dqn_torso(*ws, x)):
+        fail(f"K3a at B={b}: two launches differ")
       xn = x.permute(0, 3, 1, 2).float().mul(1.0 / 255.0).contiguous()
       nbytes, flops = torso_cuda.bound_counts(b, residuals=False)
+      kernel = lambda: torso_cuda.torso_forward(ws, x, residuals=False)
       line = report(
           "dqn_torso_fwd", f"B={b}", float((got - want).abs().max()),
           "rtol 1e-4, atol 1e-5",
-          time_ms(lambda: torso_cuda.torso_forward(ws, x, residuals=False)),
-          time_ms(lambda: torso_cuda.torso_plain(*ws, x)),
-          time_ms(lambda: library(xn)), nbytes, flops)
+          time_ms(kernel), time_ms(lambda: torso_cuda.torso_plain(*ws, x)),
+          time_ms(lambda: library(xn)), nbytes, flops,
+          graph_ms=graph_ms(kernel), bit_identical_repeat=True)
     if b == 1024:
       results["dqn_torso_fwd"] = line
 
@@ -289,6 +294,9 @@ def phase_kernels(dev):
   want, wz1, wz2 = torso_cuda.torso_plain_residuals(*ws, x)
   for a, e in ((got, want), (z1, wz1), (z2, wz2)):
     torch.testing.assert_close(a, e, rtol=1e-4, atol=1e-5)
+  if not all(torch.equal(a, e) for a, e in zip(
+      (got, z1, z2), torso_cuda.torso_forward(ws, x, residuals=True))):
+    fail("K3b: two launches differ")
   flips = sum(int(((a > 0) != (e > 0)).sum())
               for a, e in ((got, want), (z1, wz1), (z2, wz2)))
   masks = [(t > 0).float() for t in (z1, z2, got.reshape(-1, 7, 7, 64))]
@@ -315,7 +323,8 @@ def phase_kernels(dev):
         time_ms(lambda: torso_cuda.torso_forward(ws, x, residuals=True)),
         time_ms(lambda: torso_cuda.torso_plain_residuals(*ws, x)),
         time_ms(lambda: library(xn)), nbytes, flops,
-        grad_rel_frobenius_err=grad_err)
+        grad_rel_frobenius_err=grad_err, relu_branch_flips=flips,
+        bit_identical_repeat=True)
 
   # K4a: the fused IQN head at the published widths (latent 64, D = 3136,
   # H = 512), inputs at the scale of the reference's own test of its kernel.

@@ -100,7 +100,7 @@ def _torso_params(dev, seed):
   return ws
 
 
-@pytest.mark.parametrize("batch", [128, 1024, 7])
+@pytest.mark.parametrize("batch", [128, 1024, 7, 4, 1])
 def test_k3a_matches_plain(dev, batch):
   ws = _torso_params(dev, 2)
   x = torch.randint(0, 256, (batch, 84, 84, 4), generator=_gen(3),
@@ -109,7 +109,8 @@ def test_k3a_matches_plain(dev, batch):
     got = torso_cuda.dqn_torso(*ws, x)
   want = torso_cuda.torso_plain(*ws, x)
   torch.cuda.synchronize()
-  # f32 on both sides, summed in another order (TF32 is off).
+  # f32-accurate on both sides (3xTF32 in the kernel, TF32 off in the
+  # plain version), summed in another order.
   torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
@@ -136,6 +137,31 @@ def test_k3b_residuals_and_gradients_match_plain(dev):
   for u, v in zip(ga, gb):
     assert float(torch.linalg.vector_norm(u - v)
                  / torch.linalg.vector_norm(v)) <= 1e-4
+
+
+@pytest.mark.parametrize("batch", [1, 7, 1024])
+def test_k3b_residuals_match_plain(dev, batch):
+  ws = _torso_params(dev, 10)
+  x = torch.randint(0, 256, (batch, 84, 84, 4), generator=_gen(11),
+                    device=dev, dtype=torch.uint8)
+  got = torso_cuda.torso_forward(ws, x, residuals=True)
+  want = torso_cuda.torso_plain_residuals(*ws, x)
+  for a, e in zip(got, want):
+    torch.testing.assert_close(a, e, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("residuals", [False, True])
+@pytest.mark.parametrize("batch", [1024, 7])
+def test_k3_launches_are_bit_identical(dev, batch, residuals):
+  ws = _torso_params(dev, 12)
+  x = torch.randint(0, 256, (batch, 84, 84, 4), generator=_gen(13),
+                    device=dev, dtype=torch.uint8)
+  first = torso_cuda.torso_forward(ws, x, residuals=residuals)
+  again = torso_cuda.torso_forward(ws, x, residuals=residuals)
+  if not residuals:
+    first, again = (first,), (again,)
+  for a, e in zip(first, again):
+    assert torch.equal(a, e)
 
 
 def _head_inputs(dev, b, s, a, seed):

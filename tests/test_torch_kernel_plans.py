@@ -7,6 +7,9 @@ The kernels themselves run only on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
 """
 
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -294,3 +297,224 @@ def test_k1_wrapper_takes_int64_indices_like_the_jax_gather():
   np.testing.assert_array_equal(got.numpy(), want)
   assert torch.equal(got, twg.gather_windows_plain(torch.from_numpy(frames84),
                                                    st.int(), sa.int(), window))
+
+
+# --- K3: the torso's layer routine, its index maps and its 3xTF32 sums ------
+
+TORSO_CU = pathlib.Path(iqn_head.__file__).parent.parent / "csrc/dqn_torso.cu"
+
+
+def _torso_layers():
+  """The three `conv_layer` instantiations of csrc/dqn_torso.cu, in order:
+  (input is uint8, KH, KW, S, CI, CO, W, OW, MT, stride of the reader of
+  the output or 0)."""
+  found = re.findall(r"conv_layer<(uint8_t|float), ([\d, ]+)>\(",
+                     TORSO_CU.read_text())
+  return [(kind == "uint8_t",) + tuple(int(v) for v in args.split(","))
+          for kind, args in found]
+
+
+def _swizzle(x, y, s):
+  return ((x // s + y // s) & 1) << 2 if s else 0 * x
+
+
+def _emulate_layer(layer, src, w, bias, scale):
+  """One sample's `conv_layer` as its lanes run it, in float64: every
+  address of every load and store as the kernel computes it, the mma's
+  fragment layouts (A: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8,
+  t + 4); B: b0 (t, g), b1 (t + 4, g); C: c0 (g, 2t), c1 (g, 2t + 1),
+  c2 (g + 8, 2t), c3 (g + 8, 2t + 1)), exact products. `src` is the input
+  as the kernel holds it in shared memory (uint8 pixels, or f32 swizzled
+  for this layer's stride); returns the output as the kernel stores it,
+  how often each element was stored, and the shared-memory bank conflicts
+  of the A loads."""
+  u8, kh, kw, s, ci, co, w_in, ow, mt, out_s = layer
+  m_rows, r = ow * ow, kw * ci
+  groups, slices = (-(-m_rows // 16) + mt - 1) // mt, co // 16
+  g, t = np.arange(8)[:, None], np.arange(4)[None, :]  # lane 4g + t
+  wf = w.reshape(-1)
+  out = np.zeros(m_rows * co)
+  writes = np.zeros(m_rows * co, np.int64)
+  conflicts = 0
+  for item in range(groups * slices):
+    m0, n0 = item // slices * mt * 16, item % slices * 16
+    rows = [[np.minimum(m0 + 16 * i + 8 * h + g, m_rows - 1)
+             for h in (0, 1)] for i in range(mt)]
+    acc = np.zeros((mt, 2, 16, 8))
+    wl = 4 * t * co + n0 + 2 * g
+    for ky in range(kh):
+      for c in range(r // 16):
+        a = np.zeros((mt, 2, 8, 4, 4))  # [i][h][g][t][element]
+        for i in range(mt):
+          for h in (0, 1):
+            m = rows[i][h]
+            base = s * (m // ow) * w_in + s * (m % ow)
+            p = (base + ky * w_in) * ci + 4 * t
+            if u8:
+              addr = p + 16 * c
+              a[i, h] = src[addr[..., None] + np.arange(4)] * scale
+              words = np.broadcast_to(addr // 4, (8, 4)).reshape(-1)
+              banks = words % 32
+              conflicts += len(set(zip(words, banks))) - len(set(banks))
+            else:
+              odd = ((m % ow) + (m // ow) + ky // s) & 1
+              kx, kq = 16 * c // ci, 16 * c % ci // 4
+              f = ((kq >> 2) ^ (kx // s)) & 1
+              addr = p + 16 * (f ^ odd) + kx * ci + 4 * (kq & ~4)
+              a[i, h] = src[addr[..., None] + np.arange(4)]
+              lanes = np.broadcast_to(addr, (8, 4)).reshape(-1)
+              for q in range(4):  # a phase: 8 lanes, 16 bytes each
+                ph = lanes[8 * q:8 * q + 8]
+                groups16 = (ph // 4) % 8
+                conflicts += len(set(ph)) - len(set(groups16))
+        b = np.stack([wf[wl + (ky * r + 16 * c + j) * co + e]
+                      for j in range(4) for e in (0, 1)]).reshape(4, 2, 8, 4)
+        for sk in (0, 1):
+          at = np.zeros((mt, 16, 8))
+          for i in range(mt):
+            at[i, :8, :4] = a[i, 0, :, :, 2 * sk]
+            at[i, 8:, :4] = a[i, 1, :, :, 2 * sk]
+            at[i, :8, 4:] = a[i, 0, :, :, 2 * sk + 1]
+            at[i, 8:, 4:] = a[i, 1, :, :, 2 * sk + 1]
+          bt = np.zeros((2, 8, 8))
+          for j in (0, 1):
+            bt[j, :4, :] = b[2 * sk, j].T  # b0 (k = t, n = g)
+            bt[j, 4:, :] = b[2 * sk + 1, j].T
+          for i in range(mt):
+            for j in (0, 1):
+              acc[i, j] += at[i] @ bt[j]
+    for i in range(mt):
+      for h in (0, 1):
+        m = m0 + 16 * i + 8 * h + g
+        frag = lambda j, e: acc[i, j][8 * h + g, 2 * t + e]  # c[2h + e]
+        vals = np.stack([frag(0, 0), frag(1, 0), frag(0, 1), frag(1, 1)], -1)
+        vals = np.maximum(vals + bias[(n0 + 4 * t)[..., None] + np.arange(4)],
+                          0)
+        q = (n0 >> 2) + t
+        addr = m * co + ((q ^ _swizzle(m % ow, m // ow, out_s)) << 2)
+        keep = np.broadcast_to(m < m_rows, (8, 4))
+        for e in range(4):
+          np.add.at(writes, (addr + e)[keep], 1)
+          out[(addr + e)[keep]] = vals[..., e][keep]
+  return out, writes, conflicts
+
+
+def _unswizzle(z, w_in, c, s):
+  """K3b's `copy_out`: a swizzled (W, W, C) activation to NHWC."""
+  i = np.arange(w_in * w_in * c // 4)
+  p, q = i // (c // 4), i % (c // 4)
+  src = p * c + ((q ^ _swizzle(p % w_in, p // w_in, s)) << 2)
+  return z[src[:, None] + np.arange(4)].reshape(w_in, w_in, c)
+
+
+def _conv64(x, w, b, stride):
+  """relu(conv(x, w) + b) in float64, NHWC and HWIO, VALID padding."""
+  y = torch.nn.functional.conv2d(
+      torch.from_numpy(x).permute(2, 0, 1)[None],
+      torch.from_numpy(w).permute(3, 2, 0, 1), torch.from_numpy(b),
+      stride=stride)
+  return torch.relu(y)[0].permute(1, 2, 0).numpy()
+
+
+def test_k3_layer_instantiations_chain_the_torso():
+  layers = _torso_layers()
+  assert [l[1:8] for l in layers] == [(8, 8, 4, 4, 32, 84, 20),
+                                      (4, 4, 2, 32, 64, 20, 9),
+                                      (3, 3, 1, 64, 64, 9, 7)]
+  assert [l[0] for l in layers] == [True, False, False]
+  # Each layer's output is swizzled for the stride of the layer that reads
+  # it; the last goes to device memory unswizzled.
+  assert [l[9] for l in layers] == [2, 1, 0]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k3_index_maps_compute_the_convolutions_exactly(seed):
+  """The layer routine's index maps (row -> position with the padded rows
+  clamped and masked, k = t, t + 4 of 4 consecutive elements, the column
+  order, the swizzle of z1 and z2 and K3b's copies that undo it), emulated
+  lane by lane in float64 on integer-valued data, give exactly F.conv2d's
+  z1, z2 and output; every output element is stored once; the A loads of
+  every layer are free of shared-memory bank conflicts."""
+  rng = np.random.RandomState(seed)
+  x = rng.randint(0, 256, (84, 84, 4)).astype(np.uint8)
+  shapes = [(8, 8, 4, 32), (4, 4, 32, 64), (3, 3, 64, 64)]
+  ws = [rng.randint(-2, 3, s).astype(np.float64) for s in shapes]
+  bs = [rng.randint(-60, 61, s[-1]).astype(np.float64) for s in shapes]
+  layers = _torso_layers()
+  smem = x.reshape(-1).astype(np.float64)
+  want = x.astype(np.float64)
+  for n, (layer, w, b) in enumerate(zip(layers, ws, bs)):
+    out, writes, conflicts = _emulate_layer(layer, smem, w, b, scale=1.0)
+    assert (writes == 1).all()
+    assert conflicts == 0, f"layer {n + 1}: {conflicts} bank conflicts"
+    want = _conv64(want, w, b, layer[3])
+    ow, co, out_s = layer[7], layer[5], layer[9]
+    got = _unswizzle(out, ow, co, out_s)
+    np.testing.assert_array_equal(got, want)
+    assert (got > 0).mean() > 0.2  # the data exercises both ReLU branches
+    smem = out
+
+
+def _im2col(x, kh, kw, stride):
+  """(B, H, W, C) -> (B * OH * OW, KH * KW * C), k in HWIO row order."""
+  b, h, w, c = x.shape
+  oh, ow = (h - kh) // stride + 1, (w - kw) // stride + 1
+  p = x.unfold(1, kh, stride).unfold(2, kw, stride)  # (B, OH, OW, C, KH, KW)
+  return p.permute(0, 1, 2, 4, 5, 3).reshape(b * oh * ow, kh * kw * c)
+
+
+def _k3_layer_3xtf32(x, w, bias, stride, fold):
+  """One layer as the kernel sums it: k-steps of 8 k (4 consecutive
+  elements of a 16-k chunk taken as k = t, t + 4 of two k-steps), three
+  TF32 products a k-step (small products first), each mma's sum added
+  into its f32 accumulator with truncation; with `fold` each k-step's
+  products go into a zeroed tile that a rounding f32 add folds in."""
+  kh, kw, ci, co = w.shape
+  b, ow = x.shape[0], (x.shape[1] - kh) // stride + 1
+  (ab, a_s), (bb, b_s) = _split(_im2col(x, kh, kw, stride)), _split(
+      w.reshape(-1, co))
+  acc = torch.zeros(ab.shape[0], co)
+  for k0 in range(0, kh * kw * ci, 16):
+    for s in (0, 1):
+      cols = [k0 + 4 * t + 2 * s + e for t in range(4) for e in (0, 1)]
+      tile = torch.zeros_like(acc) if fold else acc
+      for u, v in ((a_s, bb), (ab, b_s), (ab, bb)):
+        tile = _mma(tile, u[:, cols], v[cols])
+      acc = acc + tile if fold else tile
+  return torch.relu(acc + bias).reshape(b, ow, ow, co)
+
+
+def _k3_share(fold):
+  """The largest error of z1, z2 and the output of the torso in 3xTF32
+  (four samples, inputs and weights as chip_smoke.py makes them) against
+  float64, as a share of rtol 1e-4, atol 1e-5."""
+  rng = np.random.RandomState(4)
+  x = torch.from_numpy(rng.randint(0, 256, (4, 84, 84, 4)).astype(np.uint8))
+  shapes = [(8, 8, 4, 32), (4, 4, 32, 64), (3, 3, 64, 64)]
+  ws = [torch.from_numpy(((rng.rand(*s) * 2 - 1) / np.sqrt(np.prod(s[:-1])))
+                         .astype(np.float32)) for s in shapes]
+  bs = [torch.from_numpy(((rng.rand(s[-1]) * 2 - 1) / 16).astype(np.float32))
+        for s in shapes]
+  h = x.to(torch.float32) * torch.tensor(1.0 / 255.0, dtype=torch.float32)
+  h64 = x.double() / 255.0
+  shares = []
+  for w, b, stride in zip(ws, bs, (4, 2, 1)):
+    h = _k3_layer_3xtf32(h, w, b, stride, fold)
+    h64 = torch.relu(torch.nn.functional.conv2d(
+        h64.permute(0, 3, 1, 2), w.double().permute(3, 2, 0, 1), b.double(),
+        stride=stride)).permute(0, 2, 3, 1)
+    shares.append(float(((h.double() - h64).abs()
+                         / (1e-5 + 1e-4 * h64.abs())).max()))
+  return shares
+
+
+def test_k3_3xtf32_sums_fit_the_tolerance_without_a_fold():
+  """Over the real k-depths (32, 64 and 72 k-steps in one accumulator) the
+  tensor cores' truncating adds keep every layer within an eighth of the
+  card check's rtol 1e-4 / atol 1e-5 without a fold (a fold every k-step:
+  within a hundredth); the shares are printed (pytest -s)."""
+  plain, folded = _k3_share(fold=False), _k3_share(fold=True)
+  print(f"K3 3xTF32 error share of the tolerance (z1, z2, out): "
+        f"no fold {plain}, fold every k-step {folded}")
+  assert max(folded) < 0.05
+  assert max(plain) < 0.25

@@ -1,15 +1,23 @@
-"""Design checks for the port's K4a, K4b, K4c and K1 kernels on one card.
+"""Design checks for the port's K3, K4a, K4b, K4c and K1 kernels on one card.
 
-  python tools/torch_kernel_variants.py [check ...]
+  python tools/torch_kernel_variants.py [check ...] [--parent=PATH]
 
-(checks: mma_peak k4a k4b k4b_parts k4c k4c_parts k4c_sass k1; all by
-default.)
+(checks: mma_peak k3_parts k4a k4b k4b_parts k4c k4c_parts k4c_sass k1; all
+by default. --parent names another version of csrc/dqn_torso.cu, such as
+the parent commit's, for k3_parts to cut and time beside this one.)
 
 Prints one JSON line per check, each time a device time from CUDA-graph
 replays (the host out of the way):
   MMA_PEAK  the TF32 rate `mma.sync.m16n8k8` reaches on this card with
             8 warps per SM and no memory traffic: the ceiling of K4a's
             tensor-core path (3xTF32 takes three of these per f32 product);
+  K3_PARTS  K3a (csrc/dqn_torso.cu, and the --parent source) at B=1024
+            with one convolution cut out at a time and with all three cut
+            (the outputs are then wrong; only the time counts): where the
+            kernel's time goes, layer by layer. A cut puts `if (false)`
+            before the layer's routine (tensor-core source) or empties its
+            loop (the CUDA-core source before it); the sources are run in
+            the order parent, this, this, parent;
   K4A       K4a as built from csrc/iqn_head.cu against a variant built from
             the same source without the per-k-step fold (all three TF32
             products added straight into the accumulator), at the act, eval,
@@ -62,6 +70,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
 from dqn_zoo_torch import kernels  # noqa: E402
 from dqn_zoo_torch.nets import iqn_head as ih  # noqa: E402
+from dqn_zoo_torch.nets import torso_cuda  # noqa: E402
 from dqn_zoo_torch.replay import window_gather as twg  # noqa: E402
 
 OUT = kernels.BUILD_DIR / "variants"
@@ -133,6 +142,66 @@ def mma_peak(dev) -> dict:
                                 kernels.stream_ptr(out.device)), n=2)
   flops = sms * 8 * iters * 16 * 2 * 16 * 8 * 8
   return dict(blocks=sms, warps_per_sm=8, tflops=flops / ms / 1e9)
+
+
+# K3's layers, each cut out by a text substitution: in the tensor-core
+# source by skipping its layer routine, in the CUDA-core one by emptying
+# its loop over register tiles.
+K3_CUTS = {
+    "tensor_cores": {"no_conv1": ("  conv_layer<uint8_t,",
+                                  "  if (false) conv_layer<uint8_t,"),
+                     "no_conv2": ("  conv_layer<float, 4, 4,",
+                                  "  if (false) conv_layer<float, 4, 4,"),
+                     "no_conv3": ("  conv_layer<float, 3, 3,",
+                                  "  if (false) conv_layer<float, 3, 3,")},
+    "cuda_cores": {"no_conv1": ("item < 80 * 8;", "item < 0;"),
+                   "no_conv2": ("item < 27 * 8;", "item < 0;"),
+                   "no_conv3": ("item < 7 * 32;", "item < 0;")},
+}
+
+
+def k3_parts(dev, gen, parent=None) -> None:
+  sources = {"change": (kernels.CSRC / "dqn_torso.cu").read_text()}
+  if parent:
+    sources["parent"] = open(parent).read()
+  libs = {}
+  for who, src in sources.items():
+    design = "tensor_cores" if "conv_layer<" in src else "cuda_cores"
+    cuts = {name: [cut] for name, cut in K3_CUTS[design].items()}
+    cuts["no_convs"] = [cut for (cut,) in cuts.values()]
+    libs[who] = dict(design=design)
+    for name in ["kernel", *cuts]:
+      cut = src
+      for old, new in cuts.get(name, []):
+        if old not in cut:
+          raise SystemExit(f"{who} {name}: {old!r} is not in the source")
+        cut = cut.replace(old, new)
+      lib = build(f"dqn_torso_{who}_{name}", cut)
+      lib.dz_dqn_torso.argtypes = torso_cuda._ARGS
+      lib.dz_dqn_torso.restype = ctypes.c_int
+      libs[who][name] = lib
+  ws = [torch.rand(shape, generator=gen, device=dev) * 0.1 - 0.05
+        for shape in torso_cuda.SHAPES.values()]
+  b = 1024
+  x = torch.randint(0, 256, (b, 84, 84, 4), generator=gen, device=dev,
+                    dtype=torch.uint8)
+  out = torch.empty((b, 3136), device=dev)
+  order = ["parent", "change", "change", "parent"] if parent else ["change"]
+  line = dict(shape=f"B={b}", residuals=False)
+  for who in order:
+    times = {}
+    for name, lib in libs[who].items():
+      if name == "design":
+        continue
+      call = lambda: lib.dz_dqn_torso(
+          x.data_ptr(), *(w.data_ptr() for w in ws), out.data_ptr(), None,
+          None, b, 0, kernels.stream_ptr(out.device))
+      if call() != 0:
+        raise SystemExit(f"{who} {name}: launch failed")
+      times[name] = graph_ms(call, n=5)
+    line.setdefault(who, dict(design=libs[who]["design"], ms=[]))
+    line[who]["ms"].append(times)
+  print("K3_PARTS " + json.dumps(line), flush=True)
 
 
 def k4a(dev, gen) -> None:
@@ -454,15 +523,19 @@ def main() -> int:
   dev = torch.device("cuda")
   gen = torch.Generator(device=dev)
   gen.manual_seed(0)
+  parent = [a.split("=", 1)[1] for a in sys.argv[1:]
+            if a.startswith("--parent=")]
+  names = [a for a in sys.argv[1:] if not a.startswith("--")]
   checks = dict(mma_peak=lambda: print(
       "MMA_PEAK " + json.dumps(mma_peak(dev)), flush=True),
+                k3_parts=lambda: k3_parts(dev, gen, *parent),
                 k4a=lambda: k4a(dev, gen), k4b=lambda: k4b(dev, gen),
                 k4b_parts=lambda: k4b_parts(dev, gen),
                 k4c=lambda: k4c(dev, gen),
                 k4c_parts=lambda: k4c_parts(dev, gen),
                 k4c_sass=lambda: k4c_sass(dev, gen),
                 k1=lambda: k1(dev, gen))
-  for name in sys.argv[1:] or checks:
+  for name in names or checks:
     checks[name]()
   return 0
 

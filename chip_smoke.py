@@ -5,8 +5,8 @@
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. build every CUDA kernel from dqn_zoo_torch/csrc (one nvcc per source,
      all in parallel) and print the build time and what `-Xptxas -v` says
-     of each kernel (registers, static shared memory, spills; K4b's and
-     K4c's dynamic shared memory beside it);
+     of each kernel (registers, static shared memory, spills; K4b's, K4c's
+     and K2's dynamic shared memory beside it);
   2. hold each kernel against its plain PyTorch version at the main paths'
      shapes, and time kernel, plain version, library call and bound;
   3. drive the first main path — build_engine("dqn", "pong", num_envs=128,
@@ -216,32 +216,48 @@ def phase_kernels(dev):
       graph_ms=graph_ms(kernel, sets), library_graph_ms=graph_ms(library, sets))
   del frames, flat, sets
 
-  # K2: B = 128 env frame pairs, 8 sets (206 MB) for the timing; one
-  # penultimate frame of each set all zero.
-  b = 128
-  sets = []
-  for _ in range(ROTATE):
-    f1 = torch.randint(0, 256, (b, 210, 160, 3), generator=gen, device=dev,
-                       dtype=torch.uint8)
-    f2 = torch.randint(0, 256, (b, 210, 160, 3), generator=gen, device=dev,
-                       dtype=torch.uint8)
-    f1[0] = 0
-    sets.append((f1, f2))
-  got = torch.cat([cuda_prep.pooled_frame_to_84(*fs) for fs in sets])
-  want = torch.cat([tprep.pooled_frame_to_84_plain(*fs) for fs in sets])
-  diff = (got.int() - want.int()).abs()
-  exact = float((diff == 0).float().mean())
-  if int(diff.max()) > 1 or exact < 0.98:
-    fail(f"K2 differs from its plain version: max {int(diff.max())}, "
-         f"exact share {exact}")
-  nbytes, flops = cuda_prep.bound_counts(b)
-  results["pooled_frame_to_84"] = report(
-      "pooled_frame_to_84", f"B={b}", float(diff.max()),
-      "|diff| <= 1 and >= 98% exact",
-      time_ms(cuda_prep.pooled_frame_to_84, sets),
-      time_ms(tprep.pooled_frame_to_84_plain, sets), None,
-      nbytes, flops, exact_share=exact)
-  del sets
+  # K2 at B = 128 (train) and B = 4 (eval), 8 sets of env frame pairs each,
+  # one penultimate frame of each set all zero. At B = 128 the 8 sets (206
+  # MB) exceed the 50 MB L2, so each call reads from HBM; at B = 4 they (6.5
+  # MB) stay in L2, as the eval path's freshly rendered frames do. The
+  # kernel sums each output's taps in a fixed order: it must equal the plain
+  # version bit for bit, and two launches must give the same bits.
+  for b, role in ((128, "train"), (4, "eval")):
+    sets = []
+    for _ in range(ROTATE):
+      f1 = torch.randint(0, 256, (b, 210, 160, 3), generator=gen, device=dev,
+                         dtype=torch.uint8)
+      f2 = torch.randint(0, 256, (b, 210, 160, 3), generator=gen, device=dev,
+                         dtype=torch.uint8)
+      f1[0] = 0
+      sets.append((f1, f2))
+    got = [cuda_prep.pooled_frame_to_84(*fs) for fs in sets]
+    repeat = all(torch.equal(g, cuda_prep.pooled_frame_to_84(*fs))
+                 for g, fs in zip(got, sets))
+    want = [tprep.pooled_frame_to_84_plain(*fs) for fs in sets]
+    diff = (torch.cat(got).int() - torch.cat(want).int()).abs()
+    differing = int((diff != 0).sum())
+    if differing:
+      fail(f"K2 at B={b} differs from its plain version in {differing} "
+           f"pixels, by up to {int(diff.max())}")
+    if not repeat:
+      fail(f"K2 at B={b}: two launches gave different bits")
+    nbytes, flops = cuda_prep.bound_counts(b)
+    mb = 2 * ROTATE * b * 210 * 160 * 3 / 1e6
+    line = report(
+        "pooled_frame_to_84", f"B={b}", float(diff.max()), "exact",
+        time_ms(cuda_prep.pooled_frame_to_84, sets),
+        time_ms(tprep.pooled_frame_to_84_plain, sets), None, nbytes, flops,
+        graph_ms=graph_ms(cuda_prep.pooled_frame_to_84, sets),
+        role=role, exact_share=float((diff == 0).float().mean()),
+        differing_pixels=differing, bit_identical_repeat=repeat,
+        band_rows=cuda_prep.BAND_ROWS,
+        inputs=f"{ROTATE} sets, {mb:.1f} MB together: " + (
+            "more than the 50 MB L2, read from HBM" if mb > 50 else
+            "in the 50 MB L2, as the eval path's fresh frames are"))
+    if role == "train":
+      results["pooled_frame_to_84"] = line
+    del sets, got, want
 
   # K3: torso weights at the legacy init scale.
   ws = []
@@ -903,11 +919,16 @@ def main() -> int:
     k._func()
   print(f"BUILD {time.perf_counter() - t0:.2f} s "
         f"{json.dumps(built)}", flush=True)
-  # K4b's and K4c's blocks take dynamic shared memory, which ptxas does not
-  # count: their source reports it.
+  # K4b's, K4c's and K2's blocks take dynamic shared memory, which ptxas
+  # does not count: their sources report it.
+  from dqn_zoo_torch.prep import cuda_prep
   smem = kernels.load("iqn_head_bwd.cu").dz_iqn_head_bwd_smem
+  plan = cuda_prep.band_plan()
   dynamic = {"iqn_head_bwd_w_kernel": smem(0),
-             "iqn_head_bwd_d_kernel": smem(1)}
+             "iqn_head_bwd_d_kernel": smem(1),
+             "pooled_frame_to_84_kernel": kernels.load(
+                 "pooled_frame_to_84.cu").dz_pooled_frame_to_84_smem(
+                     plan.max_rows)}
   for source, log in sorted(kernels.BUILD_LOG.items()):
     report = ptxas_report(log)
     for entry in report:

@@ -1,7 +1,8 @@
-"""What the CPU can check of the K4a, K4b, K4c and K1 kernels' plans: the
-split of D over blocks, that 3xTF32 products fit K4a's, K4b's and K4c's
-tolerances at the real widths, and K1's index handling at int64 against the
-JAX package.
+"""What the CPU can check of the K4a, K4b, K4c, K3, K2 and K1 kernels'
+plans: the split of D over blocks, that 3xTF32 products fit K4a's, K4b's
+and K4c's tolerances at the real widths, K3's index maps, K2's bands and its
+band-split algorithm against the plain version, and K1's index handling at
+int64 against the JAX package.
 
 The kernels themselves run only on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
@@ -17,6 +18,8 @@ import torch
 
 from dqn_zoo_tpu.replay import window_gather as jwg
 from dqn_zoo_torch.nets import iqn_head
+from dqn_zoo_torch.prep import atari as tprep
+from dqn_zoo_torch.prep import cuda_prep
 from dqn_zoo_torch.replay import window_gather as twg
 
 D = 3136
@@ -518,3 +521,139 @@ def test_k3_3xtf32_sums_fit_the_tolerance_without_a_fold():
         f"no fold {plain}, fold every k-step {folded}")
   assert max(folded) < 0.05
   assert max(plain) < 0.25
+
+
+# --- K2: the band plan, its shared memory, and the band-split algorithm ------
+
+PREP_CU = pathlib.Path(iqn_head.__file__).parent.parent / \
+    "csrc/pooled_frame_to_84.cu"
+K2_BAND_ROWS = sorted({cuda_prep.BAND_ROWS - 1, cuda_prep.BAND_ROWS,
+                       cuda_prep.BAND_ROWS + 1, 4, 12})
+
+
+def _k2_tables(p):
+  """(spans (bands, 2), Ry's (84, 2) and Cx's (84, 2) first tap and count,
+  Ry's and Cx's weights (TAPS, 84)) of a plan, as the kernel reads them."""
+  spans = p.plan[:2 * p.bands].reshape(p.bands, 2)
+  ry, cx = p.plan[2 * p.bands:].reshape(2, 84, cuda_prep.REC)
+  weights = lambda rec: np.ascontiguousarray(rec[:, 2:]).view(np.float32).T
+  return spans, ry[:, :2], cx[:, :2], weights(ry), weights(cx)
+
+
+def _k2_band_rows(band, band_rows):
+  """The output rows block `band` writes (the kernel's i0 and nr)."""
+  i0 = band * band_rows
+  return range(i0, i0 + min(band_rows, 84 - i0))
+
+
+@pytest.mark.parametrize("band_rows", K2_BAND_ROWS)
+def test_k2_bands_write_each_row_once_and_load_every_tap(band_rows):
+  p = cuda_prep.band_plan(band_rows)
+  spans, ry, cx, wy, wx = _k2_tables(p)
+  assert p.bands == -(-84 // band_rows)  # the launcher's check
+  assert p.plan.dtype == np.int32 and p.plan.size == 2 * p.bands + 168 * 7
+  written = [i for k in range(p.bands) for i in _k2_band_rows(k, band_rows)]
+  assert sorted(written) == list(range(84))
+  full_ry = tprep.resize_weights(210, 84)
+  for k, (y0, rows) in enumerate(spans):
+    assert 0 <= y0 and y0 + rows <= 210 and rows <= p.max_rows
+    for i in _k2_band_rows(k, band_rows):
+      nz = np.nonzero(full_ry[i])[0]
+      # Every nonzero tap of the row lies in the band's loaded rows, and the
+      # tap run the kernel walks is the row's nonzero run.
+      assert y0 <= nz[0] and nz[-1] < y0 + rows
+      assert (ry[i, 0], ry[i, 1]) == (nz[0], nz[-1] + 1 - nz[0])
+      np.testing.assert_array_equal(wy[:ry[i, 1], i],
+                                    full_ry[i, nz[0]:nz[-1] + 1])
+  full_cx = tprep.resize_weights(160, 84)
+  for j, (lo, n) in enumerate(cx):
+    nz = np.nonzero(full_cx[j])[0]
+    assert (lo, n) == (nz[0], nz[-1] + 1 - nz[0]) and lo + n <= 160
+    np.testing.assert_array_equal(wx[:n, j], full_cx[j, lo:lo + n])
+
+
+def test_k2_shared_memory_fits_without_an_opt_in():
+  """The main path's band size and its neighbours take under 48 KB a block
+  (no opt-in, several blocks an SM); the kernel's own formula, read from its
+  source, is the wrapper's."""
+  body = re.search(r"constexpr int smem_bytes\(int max_rows\) "
+                   r"\{.*?return ([^;]+);", PREP_CU.read_text(), re.S).group(1)
+  for band_rows in K2_BAND_ROWS:
+    p = cuda_prep.band_plan(band_rows)
+    from_source = eval(body, dict(kRowBytes=480, kW=160, max_rows=p.max_rows))
+    assert from_source == cuda_prep.smem_bytes(p.max_rows)
+    assert from_source <= cuda_prep.SMEM_LIMIT
+    if abs(band_rows - cuda_prep.BAND_ROWS) <= 1:
+      assert from_source < 48 * 1024
+    # Once luma is done, the band's f32 vertical sums fit in the first
+    # frame's rows and the tap records it stages in the second's (at most
+    # 3 words a thread).
+    assert band_rows * 160 * 4 <= p.max_rows * 480
+    stage = (band_rows + 84) * cuda_prep.REC
+    assert 4 * stage <= p.max_rows * 480 and stage <= 3 * 256
+  main = cuda_prep.band_plan()
+  assert (main.bands, main.max_rows) == (14, 17)
+  assert cuda_prep.smem_bytes(main.max_rows) == 27200
+
+
+def _fmaf(a, b, c):
+  """fmaf(a, b, c) of float32 tensors, rounded once as the card rounds it:
+  the product is exact in float64, the sum is rounded there to odd (53 >=
+  24 + 2 bits), and that rounds to the float32 nearest the exact sum."""
+  p = a.double() * b.double()
+  c = c.double()
+  s = p + c
+  v = s - p
+  err = (p - (s - v)) + (c - v)  # s + err is exactly p + c
+  even = (s.view(torch.int64) & 1) == 0
+  toward = torch.where(err > 0, torch.inf, -torch.inf).double()
+  return torch.where((err != 0) & even, torch.nextafter(s, toward), s).float()
+
+
+def test_fmaf_emulation_rounds_once():
+  a = torch.tensor([1.0 + 2.0 ** -12], dtype=torch.float32)
+  c = torch.tensor([-1.0 - 2.0 ** -11], dtype=torch.float32)
+  # a * a + c = 2^-24 exactly: two roundings would lose it.
+  assert float(_fmaf(a, a, c)) == 2.0 ** -24
+  x = torch.tensor([3.0, 0.1], dtype=torch.float32)
+  assert torch.equal(_fmaf(x, x, x), (x.double() * x + x).float())
+
+
+def _k2_band_split(f1, f2, band_rows):
+  """The kernel's algorithm in torch: each band pools and lumas only the
+  input rows it loads, then sums its output rows' taps as fmaf chains."""
+  p = cuda_prep.band_plan(band_rows)
+  spans, ry, cx, wy, wx = (torch.from_numpy(t) for t in _k2_tables(p))
+  w = torch.tensor(tprep.RGB2Y_WEIGHTS, dtype=torch.float32)
+  out = torch.empty((f1.shape[0], 84, 84), dtype=torch.uint8)
+  for k, (y0, rows) in enumerate(spans.tolist()):
+    pooled = torch.maximum(f1[:, y0:y0 + rows], f2[:, y0:y0 + rows]).float()
+    y = pooled[..., 0] * w[0] + pooled[..., 1] * w[1] + pooled[..., 2] * w[2]
+    y = torch.clamp(torch.floor(y), max=255.0)
+    for i in _k2_band_rows(k, band_rows):
+      lo, n = int(ry[i, 0]) - y0, int(ry[i, 1])
+      assert 0 <= lo and lo + n <= rows
+      v = torch.zeros((f1.shape[0], 160))
+      for t in range(n):
+        v = _fmaf(wy[t, i].expand_as(v), y[:, lo + t], v)
+      acc = torch.zeros((f1.shape[0], 84))
+      for t in range(cuda_prep.TAPS):
+        live = t < cx[:, 1]
+        col = torch.clamp(cx[:, 0] + t, max=159)
+        acc = torch.where(live, _fmaf(v[:, col], wx[t].expand_as(acc), acc),
+                          acc)
+      out[:, i] = torch.clamp(torch.round(acc), 0, 255).to(torch.uint8)
+  return out
+
+
+@pytest.mark.parametrize("band_rows", [cuda_prep.BAND_ROWS, 4, 12])
+def test_k2_band_split_equals_the_plain_version(band_rows):
+  rng = np.random.RandomState(11)
+  f1 = rng.randint(0, 256, (3, 210, 160, 3), np.uint8)
+  f2 = rng.randint(0, 256, (3, 210, 160, 3), np.uint8)
+  f1[0] = 0  # the zero penultimate frame of an episode's first step
+  f1[2, 100:] = f2[2, 100:] = 0  # a black lower half
+  f1, f2 = torch.from_numpy(f1), torch.from_numpy(f2)
+  got = _k2_band_split(f1, f2, band_rows)
+  assert torch.equal(got, tprep.pooled_frame_to_84_plain(f1, f2))
+  assert torch.equal(got, cuda_prep.pooled_frame_to_84(f1, f2))

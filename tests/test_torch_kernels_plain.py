@@ -55,11 +55,13 @@ def test_k2_resize_weights_match_jax_package():
 
 
 def test_k2_bands_cover_every_nonzero_weight():
-  ry, cx, ry_band, cx_band = (t.numpy() for t in
-                              cuda_prep.resize_constants(torch.device("cpu")))
-  for w, band in ((ry, ry_band), (cx, cx_band)):
-    for row, (lo, hi) in zip(w, band):
+  for w in (tprep.resize_weights(210, 84), tprep.resize_weights(160, 84)):
+    first, count, taps = cuda_prep.tap_table(w)
+    for i, (row, lo, n) in enumerate(zip(w, first, count)):
+      hi = lo + n
       assert not row[:lo].any() and not row[hi:].any() and hi > lo
+      np.testing.assert_array_equal(taps[i, :n], row[lo:hi])
+      assert not taps[i, n:].any()
 
 
 def _k2_compare(f1, f2):

@@ -1,10 +1,13 @@
-"""Design checks for the port's K3, K4a, K4b, K4c and K1 kernels on one card.
+"""Design checks for the port's K3, K4a, K4b, K4c, K2 and K1 kernels on one
+card.
 
   python tools/torch_kernel_variants.py [check ...] [--parent=PATH]
 
-(checks: mma_peak k3_parts k4a k4b k4b_parts k4c k4c_parts k4c_sass k1; all
-by default. --parent names another version of csrc/dqn_torso.cu, such as
-the parent commit's, for k3_parts to cut and time beside this one.)
+(checks: mma_peak k3_parts k4a k4b k4b_parts k4c k4c_parts k4c_sass k2
+k2_parent k1; all but k2_parent by default. --parent names another version
+of the sources, such as the parent commit's: the root of its checkout, or
+one source file, for k3_parts (csrc/dqn_torso.cu), k2 and k2_parent
+(csrc/pooled_frame_to_84.cu) to time beside this one.)
 
 Prints one JSON line per check, each time a device time from CUDA-graph
 replays (the host out of the way):
@@ -48,6 +51,22 @@ replays (the host out of the way):
             splits on the FP32 pipe (Veltkamp's) or left out: where the time
             of a 128-row step goes;
   K4C_SASS  instructions and HMMA of K4c's loops that issue `mma`;
+  K2        K2 (csrc/pooled_frame_to_84.cu) at B=128 (train; 8 rotated
+            input sets, 206 MB, larger than the 50 MB L2) and B=4 (eval; 8
+            sets of 0.8 MB, which stay in L2 as freshly rendered frames
+            do), under a CUDA graph: the --parent source (one block per env,
+            its own C interface) and this one in turns (parent, this, this,
+            parent), this one at band sizes of 2, 3, 4, 6, 8 and 12 output rows,
+            and a phase cut of this one at its main-path band size (the
+            bulk loads only; loads and luma; the full kernel). Beside them
+            `torch.maximum` of the same frames (it reads what K2 reads and
+            writes one frame back: a yardstick of what HBM gives this
+            traffic), and for each source its exact share against the
+            plain version, whether two launches give the same bits, and its
+            eager time (16 launches from the host between two events)
+            beside its graph time;
+  K2_PARENT the --parent source alone, as in K2 (the reading a change is
+            predicted from before it is timed);
   K1        K1 against `index_select` on precomputed rows and a contiguous
             copy of the same bytes (the rate this mix of reads and writes
             reaches at best), rotating 8 index sets as chip_smoke.py does.
@@ -64,6 +83,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -160,8 +180,19 @@ K3_CUTS = {
 }
 
 
+def parent_source(parent, name: str):
+  """The path of the parent's csrc/`name`, where --parent gives one: the
+  root of a checkout, or the source file itself."""
+  if parent is None:
+    return None
+  if os.path.isdir(parent):
+    return os.path.join(parent, "dqn_zoo_torch", "csrc", name)
+  return parent if os.path.basename(parent) == name else None
+
+
 def k3_parts(dev, gen, parent=None) -> None:
   sources = {"change": (kernels.CSRC / "dqn_torso.cu").read_text()}
+  parent = parent_source(parent, "dqn_torso.cu")
   if parent:
     sources["parent"] = open(parent).read()
   libs = {}
@@ -483,6 +514,138 @@ def k4c_run(dev, gen, libs, b, s, need_dcos, check):
   return line
 
 
+# K2's phases, each cut by a text substitution after its block barrier (the
+# outputs are then wrong; only the time counts).
+K2_CUTS = {
+    "loads": ("  mbar_wait(&bar, 0);\n", "  mbar_wait(&bar, 0);\n  return;\n"),
+    "loads_luma": ("  __syncthreads();\n\n  // Vertical pass",
+                   "  __syncthreads();\n  return;\n\n  // Vertical pass"),
+}
+K2_BAND_ROWS = (2, 3, 4, 6, 8, 12)
+
+
+def eager_ms(fn, n: int) -> float:
+  """Device milliseconds per call of `n` calls launched one after another
+  from the host (its launch cost included), after 3 warm-ups."""
+  for _ in range(3):
+    fn()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  for _ in range(n):
+    fn()
+  end.record()
+  torch.cuda.synchronize()
+  return start.elapsed_time(end) / n
+
+
+def k2(dev, gen, parent=None, parent_only=False) -> None:
+  """K2 as above; with `parent_only` the --parent source alone (its exact
+  share, repeat bits, eager and graph times at both shapes): the reading a
+  change is predicted from before it is timed."""
+  from dqn_zoo_torch.prep import atari as tprep
+  from dqn_zoo_torch.prep import cuda_prep
+
+  parent = parent_source(parent, "pooled_frame_to_84.cu")
+  if parent_only and not parent:
+    raise SystemExit("k2_parent needs --parent")
+  versions = {}
+  if parent:
+    lib = build("pooled_frame_to_84_parent", open(parent).read())
+    # The parent's interface: both resize matrices and each row's nonzero
+    # run [first, last + 1).
+    mats = [tprep.resize_weights(n, 84) for n in (210, 160)]
+    runs = []
+    for w in mats:
+      first, count, _ = cuda_prep.tap_table(w)
+      runs.append(np.stack([first, first + count], 1).astype(np.int32))
+    args = [torch.from_numpy(a).to(dev) for a in mats + runs]
+
+    def run_parent(f1, f2):
+      out = torch.empty((f1.shape[0], 84, 84), dtype=torch.uint8, device=dev)
+      err = lib.dz_pooled_frame_to_84(
+          ctypes.c_void_p(f1.data_ptr()), ctypes.c_void_p(f2.data_ptr()),
+          *(ctypes.c_void_p(t.data_ptr()) for t in args),
+          ctypes.c_void_p(out.data_ptr()), ctypes.c_int(f1.shape[0]),
+          ctypes.c_void_p(kernels.stream_ptr(dev)))
+      if err:
+        raise SystemExit(f"parent K2 launch failed: {err}")
+      return out
+    versions["parent"] = run_parent
+  if not parent_only:
+    versions["change"] = cuda_prep.pooled_frame_to_84
+
+  def entry(lib):
+    fn = lib.dz_pooled_frame_to_84
+    fn.argtypes = cuda_prep.KERNEL.argtypes
+
+    def call(*args):
+      if fn(*args):
+        raise SystemExit("K2 variant launch failed")
+    return call
+
+  cuts = {}
+  if not parent_only:
+    src = (kernels.CSRC / "pooled_frame_to_84.cu").read_text()
+    for name, (old, new) in K2_CUTS.items():
+      if old not in src:
+        raise SystemExit(f"k2 {name}: {old!r} is not in the source")
+      cuts[name] = entry(build(f"pooled_frame_to_84_{name}",
+                               src.replace(old, new)))
+    cuts["full"] = cuda_prep.KERNEL.launch
+
+  for b in (128, 4):
+    sets = []
+    for _ in range(8):
+      f1 = torch.randint(0, 256, (b, 210, 160, 3), generator=gen, device=dev,
+                         dtype=torch.uint8)
+      f2 = torch.randint(0, 256, (b, 210, 160, 3), generator=gen, device=dev,
+                         dtype=torch.uint8)
+      f1[0] = 0
+      sets.append((f1, f2))
+    turn = [0]
+
+    def rotating(fn):
+      def call():
+        fn(*sets[turn[0] % len(sets)])
+        turn[0] += 1
+      return call
+
+    n = 2 * len(sets)
+    line = dict(shape=f"B={b}", inputs_mb=16 * b * 100800 / 1e6,
+                band_rows=cuda_prep.BAND_ROWS)
+    want = [tprep.pooled_frame_to_84_plain(*fs) for fs in sets]
+    for who, fn in versions.items():
+      got = [fn(*fs) for fs in sets]
+      diff = torch.cat([(g.int() - w.int()).abs() for g, w in zip(got, want)])
+      line[who] = dict(
+          exact_share=float((diff == 0).float().mean()),
+          differing_pixels=int((diff != 0).sum()),
+          max_abs_diff=int(diff.max()),
+          bit_identical_repeat=all(torch.equal(g, fn(*fs))
+                                   for g, fs in zip(got, sets)),
+          graph_ms=[], eager_ms=[])
+    order = ["parent", "change", "change", "parent"] if len(versions) == 2 \
+        else list(versions) * 2
+    for who in order:
+      line[who]["graph_ms"].append(graph_ms(rotating(versions[who]), n=n))
+      line[who]["eager_ms"].append(eager_ms(rotating(versions[who]), n=n))
+    if not parent_only:
+      for r in K2_BAND_ROWS:
+        line.setdefault("band_rows_ms", {})[r] = graph_ms(rotating(
+            lambda f1, f2: cuda_prep.launch(f1, f2, r,
+                                            cuda_prep.KERNEL.launch)), n=n)
+      for name, call in cuts.items():
+        line.setdefault("phase_ms", {})[name] = graph_ms(rotating(
+            lambda f1, f2: cuda_prep.launch(f1, f2, cuda_prep.BAND_ROWS,
+                                            call)), n=n)
+    pooled = torch.empty_like(sets[0][0])
+    line["max_of_frames_ms"] = graph_ms(rotating(
+        lambda f1, f2: torch.maximum(f1, f2, out=pooled)), n=n)
+    print("K2 " + json.dumps(line), flush=True)
+    del sets, want
+
+
 def k1(dev, gen) -> None:
   b, w, s, r = 1024, 5, 128, 2048
   frames = torch.randint(0, 256, (s, r, 84, 84), generator=gen, device=dev,
@@ -534,8 +697,10 @@ def main() -> int:
                 k4c=lambda: k4c(dev, gen),
                 k4c_parts=lambda: k4c_parts(dev, gen),
                 k4c_sass=lambda: k4c_sass(dev, gen),
+                k2=lambda: k2(dev, gen, *parent),
+                k2_parent=lambda: k2(dev, gen, *parent, parent_only=True),
                 k1=lambda: k1(dev, gen))
-  for name in names or checks:
+  for name in names or [c for c in checks if c != "k2_parent"]:
     checks[name]()
   return 0
 

@@ -14,14 +14,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      supersteps for >= 20 learn steps (a timed window of 600, which holds
      episode resets), then one eval chunk; check the loss,
      the outputs and that every kernel of that path was launched;
-  4. drive the second main path — build_engine("iqn", "pong", num_envs=128,
+  4. drive the prioritized path — build_engine("prioritized", "pong",
+     num_envs=128, replay_capacity=1e6) in throughput mode with 3's lowered
+     min fill — through 360 supersteps (300 timed, 40 with a fenced split);
+     check the loss, that learning moved the max-seen priority and the value
+     tree off their insert values, the IS weights of a fresh batch, the
+     outputs and the launches per learning superstep (K3a three times: act,
+     target and the double-Q selector);
+  5. drive the iqn path — build_engine("iqn", "pong", num_envs=128,
      replay_capacity=1e6) at the agent's own min fill: 120 acting and
      replay-filling supersteps, on past the min fill through >= 20 learn
      steps (a timed window of 40 learning supersteps, then a fenced split),
      then one eval chunk; check the loss, the outputs, that the parameters
      moved and that every kernel of that path was launched as often as the
      path says;
-  5. print the kernels line, the card's name and power limit, and last the
+  6. print the kernels line, the card's name and power limit, and last the
      result line {"ok": true, "device": {...}}.
 The launch counters are set to 0 just before each path and read just after.
 Needs a CUDA card; imports nothing of JAX or of dqn_zoo_tpu.
@@ -29,6 +36,7 @@ Needs a CUDA card; imports nothing of JAX or of dqn_zoo_tpu.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -74,6 +82,8 @@ SOURCES = {
 PATH_KERNELS = {
     "dqn": ("gather_windows", "pooled_frame_to_84", "dqn_torso_fwd",
             "dqn_torso_fwd_residuals"),
+    "prioritized": ("gather_windows", "pooled_frame_to_84", "dqn_torso_fwd",
+                    "dqn_torso_fwd_residuals"),
     "iqn": ("gather_windows", "pooled_frame_to_84", "dqn_torso_fwd",
             "dqn_torso_fwd_residuals", "iqn_head_fwd",
             "iqn_head_fwd_residuals", "iqn_head_bwd_w", "iqn_head_bwd_d"),
@@ -697,6 +707,153 @@ def phase_main_path(dev):
   return counts
 
 
+def phase_per_path(dev):
+  """The port's prioritized/pong trainer at the CLI defaults (128 envs,
+  replay 1e6, throughput batch 1024, one learn step per superstep) through
+  the user's entry points, with MAIN's lowered min fill; checks what
+  prioritized replay must show after learning and returns the launch
+  counts."""
+  from dqn_zoo_torch import kernels
+  from dqn_zoo_torch.nets import atari, torso_cuda
+  from dqn_zoo_torch.replay import device_replay as dr
+  from dqn_zoo_torch.replay import fanout_tree as ft
+  from dqn_zoo_torch.run.train import build_engine
+
+  engine = build_engine("prioritized", "pong", num_envs=128,
+                        replay_capacity=1_000_000,
+                        min_replay_capacity_fraction=0.002, device="cuda")
+  cfg, rcfg = engine.config, engine.rcfg
+  if (cfg.batch_size, cfg.learn_every, cfg.updates_per_learn) != (1024, 1, 1) \
+      or (rcfg.priority_exponent, rcfg.uniform_sample_probability,
+          rcfg.normalize_weights_chunk) != (0.6, 1e-3, 32):
+    fail(f"unexpected prioritized schedule {cfg} or replay {rcfg}")
+  state = engine.init(seed=5)
+  torch.cuda.synchronize()
+  print(f"PER_MAIN engine built: replay {cfg.num_envs}x"
+        f"{cfg.slots_per_stream} rows, two trees of "
+        f"{state.replay.value_tree[0].numel()} leaves", flush=True)
+
+  kernels.reset_counts()
+  warm = 20  # the learn gate opens at ~2000 active rows (superstep ~18)
+  state = engine.run(state, warm)
+  torch.cuda.synchronize()
+  timed = 300
+  steps_before = state.telemetry.learn_steps
+  counts_before = kernels.counts()
+  resets = []
+  t0 = time.perf_counter()
+  for _ in range(timed):
+    resets.append(state.env.needs_reset.any())
+    state = engine.superstep(state)
+  torch.cuda.synchronize()
+  t_run = time.perf_counter() - t0
+  counts_after = kernels.counts()
+  if state.telemetry.learn_steps - steps_before != timed:
+    fail(f"{state.telemetry.learn_steps - steps_before} prioritized learn "
+         f"steps in {timed} timed supersteps")
+  per_learning_superstep = {
+      k: (counts_after[k] - counts_before[k]) / timed for k in counts_after
+      if k in PATH_KERNELS["prioritized"]}
+  # act, target and the double-Q selector on K3a; the online net on K3b.
+  want = {"gather_windows": 1, "pooled_frame_to_84": 1, "dqn_torso_fwd": 3,
+          "dqn_torso_fwd_residuals": 1}
+  if per_learning_superstep != want:
+    fail(f"launches per prioritized learning superstep "
+         f"{per_learning_superstep}, expected {want}")
+  split = {}
+  fenced = 40
+  state = engine.run(state, fenced, timings=split)
+  torch.cuda.synchronize()
+  counts = kernels.counts()
+
+  m = engine.metrics(state)
+  rep = state.replay
+  if m.learn_steps < 20 or not math.isfinite(m.last_loss):
+    fail(f"prioritized: {m.learn_steps} learn steps, loss {m.last_loss}")
+  for name in PATH_KERNELS["prioritized"]:
+    if counts[name] == 0:
+      fail(f"kernel {name} was not launched on the prioritized main path")
+  # Priorities: learning wrote |td|^α over the insert value, the max seen
+  # moved off its start of 1, and the tree's sums hold its leaves.
+  alpha = rcfg.priority_exponent
+  max_seen = float(rep.max_seen_priority)
+  n_active = float(ft.fanout_total(rep.indicator_tree))
+  total = float(ft.fanout_total(rep.value_tree))
+  leaf_sum = float(rep.value_tree[0].double().sum())
+  if max_seen == 1.0 or not math.isfinite(max_seen):
+    fail(f"max_seen_priority did not move: {max_seen}")
+  if math.isclose(total, n_active * max_seen ** alpha, rel_tol=1e-6):
+    fail(f"value tree total {total} is still count x max_seen^alpha")
+  if not math.isclose(total, leaf_sum, rel_tol=1e-4):
+    fail(f"value tree total {total} against its leaves' sum {leaf_sum}")
+  # IS weights of a fresh throughput batch at this run's exponent: in
+  # (0, 1], max 1 in every chunk of the agent's batch (32).
+  beta = engine.importance_sampling_exponent(rep.t * cfg.num_envs)
+  u = torch.rand((3, cfg.batch_size), generator=state.generator, device=dev)
+  _, sampled, weights = dr.replay_sample(rcfg, rep, u, beta)
+  chunks = weights.view(-1, rcfg.normalize_weights_chunk)
+  if not (bool((weights > 0).all()) and bool((weights <= 1).all())
+          and bool((chunks.max(dim=1).values == 1).all())):
+    fail(f"IS weights out of (0, 1] or without max 1 per chunk: "
+         f"{weights.min().item()} .. {weights.max().item()}")
+  repeats = cfg.batch_size - int(torch.unique(sampled).numel())
+
+  with torch.no_grad():
+    obs = state.stack.frames
+    q = engine.network.apply(state.online_params, obs).q_values
+    t = state.online_params["torso"]
+    plain = atari.dqn_value_head(state.online_params["head"],
+                                 torso_cuda.torso_plain(
+                                     t["conv1"]["w"], t["conv1"]["b"],
+                                     t["conv2"]["w"], t["conv2"]["b"],
+                                     t["conv3"]["w"], t["conv3"]["b"], obs))
+  if tuple(q.shape) != (128, 6) or not bool(torch.isfinite(q).all()):
+    fail(f"bad prioritized Q-values {tuple(q.shape)}")
+  torch.testing.assert_close(q, plain, rtol=1e-4, atol=1e-5)
+
+  # Where the replay's share of the learn stage goes: eager wall-clock ms
+  # per call (host and device together, the stream drained at the end) of
+  # a prioritized sample, the uniform sample on the same rows, and the
+  # priority write (last, since it changes the tree).
+  def wall_ms(fn, reps=20):
+    fn()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(reps):
+      fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t1) / reps
+
+  uniform_cfg = dataclasses.replace(rcfg, priority_exponent=0.0)
+  replay_ms = dict(
+      sample_prioritized=wall_ms(lambda: dr.replay_sample(rcfg, rep, u,
+                                                          beta)),
+      sample_uniform=wall_ms(lambda: dr.replay_sample(uniform_cfg, rep,
+                                                      u[0])),
+      update_priorities=wall_ms(lambda: dr.replay_update_priorities(
+          rcfg, rep, sampled, weights)))
+
+  summary = dict(
+      supersteps=warm + timed + fenced, learn_steps=m.learn_steps,
+      last_loss=m.last_loss, replay_size=m.replay_size,
+      env_frames=m.env_frames, timed_supersteps=timed,
+      training_env_steps_per_s=timed * cfg.num_envs / t_run,
+      ms_per_learning_superstep=1e3 * t_run / timed,
+      reset_supersteps_in_timed=int(torch.stack(resets).sum()),
+      split_ms_per_superstep={k: 1e3 * v / fenced for k, v in split.items()},
+      launches_per_learning_superstep=per_learning_superstep,
+      max_seen_priority=max_seen, value_tree_total=total,
+      active_rows=n_active, insert_value=max_seen ** alpha,
+      is_exponent=beta, is_weight_min=float(weights.min()),
+      is_weight_mean=float(weights.mean()),
+      repeated_leaves_in_a_batch=repeats, replay_ms_per_call=replay_ms,
+      train_launches=counts,
+      q_max_abs_err=float((q - plain).abs().max()),
+      peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+  print("PER_MAIN " + json.dumps(summary), flush=True)
+  return counts
+
+
 def phase_iqn_path(dev):
   """The port's iqn/pong trainer at full width (latent 64, 64 taus of each
   kind, D = 3136, H = 512, A = 6, batch 1024) through the user's entry
@@ -941,7 +1098,9 @@ def main() -> int:
   # Each engine holds a 7 GB frame store: one path's state is dropped
   # before the next is built.
   path_counts = {}
-  for path, phase in (("dqn", phase_main_path), ("iqn", phase_iqn_path)):
+  for path, phase in (("dqn", phase_main_path),
+                      ("prioritized", phase_per_path),
+                      ("iqn", phase_iqn_path)):
     torch.cuda.empty_cache()
     path_counts[path] = phase(dev)
 

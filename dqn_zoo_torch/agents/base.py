@@ -182,7 +182,8 @@ def register_agent(spec: AgentSpec) -> AgentSpec:
 
 
 def get_agent(name: str) -> AgentSpec:
-  from dqn_zoo_torch.agents import dqn, iqn  # noqa: F401
+  from dqn_zoo_torch.agents import (double_q, dqn, iqn,  # noqa: F401
+                                   prioritized)
   if name not in _REGISTRY:
     raise KeyError(f"Agent {name!r} is not ported yet; have "
                    f"{sorted(_REGISTRY)}.")
@@ -190,5 +191,6 @@ def get_agent(name: str) -> AgentSpec:
 
 
 def all_agent_names():
-  from dqn_zoo_torch.agents import dqn, iqn  # noqa: F401
+  from dqn_zoo_torch.agents import (double_q, dqn, iqn,  # noqa: F401
+                                   prioritized)
   return sorted(_REGISTRY)

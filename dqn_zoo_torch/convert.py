@@ -89,17 +89,23 @@ def env_state_from_jax(engine: Engine, env_state, device) -> VecEnvState:
       needs_reset=tensor(env_state.needs_reset, device))
 
 
-def replay_from_jax(replay, frame_size: int, device) -> ReplayState:
+def replay_from_jax(replay, frame_size: int, device,
+                    prioritized: bool = False) -> ReplayState:
   """JAX ReplayState → port ReplayState. Frame rows lose the TPU padding:
-  (S, C+W, 64, 128) → (S, C+W, 84, 84)."""
+  (S, C+W, 64, 128) → (S, C+W, 84, 84). Uniform replay (`prioritized`
+  false) keeps one tree, whose values JAX's two trees must share."""
   frames = np.asarray(replay.frames)
   s, r = frames.shape[:2]
   flat = frames.reshape(s, r, -1)[..., :frame_size * frame_size]
   ind = [tensor(x, device) for x in replay.indicator_tree]
-  same = all(np.array_equal(a, b) for a, b in zip(replay.value_tree,
-                                                  replay.indicator_tree))
-  if not same:
-    raise NotImplementedError("prioritized replay state is not ported yet.")
+  if prioritized:
+    value = [tensor(x, device) for x in replay.value_tree]
+  elif all(np.array_equal(a, b) for a, b in zip(replay.value_tree,
+                                                  replay.indicator_tree)):
+    value = ind
+  else:
+    raise ValueError("a uniform replay state whose value tree differs from "
+                     "its indicator tree; pass prioritized=True.")
   return ReplayState(
       frames=tensor(flat.reshape(s, r, frame_size, frame_size), device),
       stack_count=tensor(replay.stack_count, device),
@@ -108,8 +114,10 @@ def replay_from_jax(replay, frame_size: int, device) -> ReplayState:
       discount=tensor(replay.discount, device),
       is_terminal=tensor(replay.is_terminal, device),
       row_t=tensor(replay.row_t, device),
+      value_tree=value,
       indicator_tree=ind,
       t=int(replay.t),
+      max_seen_priority=tensor(replay.max_seen_priority, device),
   )
 
 
@@ -125,7 +133,8 @@ def engine_state_from_jax(engine: Engine, state, seed: int = 0
       env=env_state_from_jax(engine, state.env, dev),
       stack=namedtuple_from_jax(FrameStackState, state.stack, dev),
       pending=namedtuple_from_jax(PendingRow, state.pending, dev),
-      replay=replay_from_jax(state.replay, engine.rcfg.frame_size, dev),
+      replay=replay_from_jax(state.replay, engine.rcfg.frame_size, dev,
+                             engine.rcfg.priority_exponent > 0),
       online_params=params_from_jax(state.online_params, dev,
                                     requires_grad=True),
       target_params=params_from_jax(state.target_params, dev),

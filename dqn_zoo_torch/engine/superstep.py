@@ -8,8 +8,10 @@ B replay rows and runs gated SGD, in the reference's order:
   3. env.step(a_k)              → group output for o_{k+1}
   4. preprocess + stack update  → o_{k+1}                     (kernel K2)
   5. cache pending row k+1
-  6. gated learning: sample (K1) → loss (K3b online, K3a target) → grad →
-     the agent's optimizer; target swap on frame-count boundary crossings.
+  6. gated learning: sample (K1) → loss (K3b online, K3a target, and K3a
+     again for a double-Q selector) → grad → the agent's optimizer → new
+     priorities (prioritized replay); target swap on frame-count boundary
+     crossings.
 
 An agent whose actor takes τ samples (IQN: the fused head, kernel K4a) gets
 them from the draws too: `act_taus`, U[0, 1) of shape (B, τ samples). So
@@ -81,10 +83,17 @@ class EngineConfig:
 
   def replay_config(self) -> dr.ReplayConfig:
     a = self.agent
+    # IS weights are normalized per chunk of the agent's own batch, so that
+    # throughput mode's big batch keeps the reference's per-update weight
+    # scale (without it prioritized/pong stayed flat on the TPU).
     return dr.ReplayConfig(num_streams=self.num_envs,
                            slots_per_stream=self.slots_per_stream,
                            n_step=a.n_step,
-                           priority_exponent=a.priority_exponent)
+                           priority_exponent=a.priority_exponent,
+                           uniform_sample_probability=(
+                               a.uniform_sample_probability),
+                           normalize_weights=a.normalize_weights,
+                           normalize_weights_chunk=a.batch_size)
 
 
 class PendingRow(NamedTuple):
@@ -148,7 +157,9 @@ class EvalState(NamedTuple):
 class SuperstepDraws(NamedTuple):
   explore_u: torch.Tensor  # (B,) U[0,1) — ε test per env
   random_action: torch.Tensor  # (B,) — action where the env explores
-  sample_u: Optional[torch.Tensor]  # (updates, batch) U[0,1) replay draws
+  # U[0,1) replay draws: (updates, batch) for uniform replay, (updates, 3,
+  # batch) for prioritized replay (the u, p and mix streams).
+  sample_u: Optional[torch.Tensor]
   env: EnvDraws
   # (B, tau_samples_policy) U[0,1), only for an agent whose act takes τ.
   act_taus: Optional[torch.Tensor] = None
@@ -192,6 +203,17 @@ class Engine:
         float(env_frames), begin_value=s.exploration_epsilon_begin,
         end_value=s.exploration_epsilon_end, begin_t=begin_t,
         end_t=begin_t + decay))
+
+  def importance_sampling_exponent(self, inserted_transitions) -> float:
+    """β, annealed over inserted transitions from the min fill to the end of
+    training (in agent steps)."""
+    s = self.spec
+    return float(linear_schedule(
+        float(inserted_transitions), begin_value=s.importance_sampling_begin,
+        end_value=s.importance_sampling_end,
+        begin_t=s.min_replay_capacity_fraction * self.config.replay_capacity,
+        end_t=self.config.total_train_frames
+        // self.config.env_config.action_repeat))
 
   # --- init ------------------------------------------------------------------
 
@@ -247,7 +269,9 @@ class Engine:
     sample_u = loss_taus = None
     if learn:
       shape = (self.config.updates_per_learn, self.config.batch_size)
-      sample_u = torch.rand(shape, generator=gen, device=self.device)
+      u_shape = (shape if self.rcfg.priority_exponent == 0
+                 else (shape[0], 3, shape[1]))
+      sample_u = torch.rand(u_shape, generator=gen, device=self.device)
       if self.spec.loss_takes_taus:
         s = self.spec
         loss_taus = tuple(
@@ -268,12 +292,18 @@ class Engine:
 
   def _sgd_update(self, replay, target, online, opt_state, sample_u,
                   loss_taus=()):
-    batch, _, weights = dr.replay_sample(self.rcfg, replay, sample_u)
+    """One SGD step; with prioritized replay it then writes the sampled
+    rows' new priorities, so the next step samples the updated tree."""
+    beta = self.importance_sampling_exponent(replay.t * self.config.num_envs)
+    batch, sampled, weights = dr.replay_sample(self.rcfg, replay, sample_u,
+                                               beta)
     out = self.spec.loss(self.spec, self.network, online, target, batch,
                          weights, *loss_taus)
     params = leaves(online)
     grads = torch.autograd.grad(out.loss, params)
     self.optimizer.step(params, list(grads), opt_state)
+    if self.rcfg.priority_exponent > 0:
+      dr.replay_update_priorities(self.rcfg, replay, sampled, out.priorities)
     return out.loss.detach()
 
   # --- the superstep -----------------------------------------------------------

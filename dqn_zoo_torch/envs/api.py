@@ -73,7 +73,7 @@ def register_game(game: Game) -> Game:
 
 
 def get_game(name: str) -> Game:
-  from dqn_zoo_torch.envs.games import pong  # noqa: F401
+  from dqn_zoo_torch.envs.games import catch, pong  # noqa: F401
   if name not in _REGISTRY:
     raise KeyError(f"Game {name!r} is not ported yet; have "
                    f"{sorted(_REGISTRY)}.")

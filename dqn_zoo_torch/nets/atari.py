@@ -1,10 +1,11 @@
-"""The DQN and IQN Atari networks (port of dqn_zoo_tpu/nets/atari.py:58-131
-and :256-316).
+"""The DQN, double-DQN and IQN Atari networks (port of
+dqn_zoo_tpu/nets/atari.py:58-150 and :256-316).
 
 Parameters are a dict of tensors shaped like the JAX pytree:
   {"torso": {"conv1"|"conv2"|"conv3": {"w": HWIO, "b"}},
    "head": {"hidden": {"w": (3136, 512), "b"}, "out": {"w": (512, A), "b"}}}
-and, for IQN, also "tau_embed": {"w": (latent, 3136), "b"}.
+and, for IQN, also "tau_embed": {"w": (latent, 3136), "b"}. The double-DQN
+network's "out" has a (1,) bias shared by all actions.
 The torso flattens in (y, x, c) order as JAX flattens NHWC, so
 `head.hidden.w` carries across from JAX without a row permutation.
 """
@@ -39,10 +40,12 @@ def dqn_value_head(params, h: torch.Tensor) -> torch.Tensor:
 
 
 class DqnAtariNetwork:
-  """Classic DQN net: `init(generator, device)` and `apply(params, x)`."""
+  """Classic DQN net: `init(generator, device)` and `apply(params, x)`.
+  With `shared_bias` the last layer has one bias for all actions."""
 
-  def __init__(self, num_actions: int):
+  def __init__(self, num_actions: int, shared_bias: bool = False):
     self.num_actions = num_actions
+    self.shared_bias = shared_bias
 
   def init(self, gen: torch.Generator, device):
     return {
@@ -53,7 +56,9 @@ class DqnAtariNetwork:
         },
         "head": {
             "hidden": core.linear_init(gen, 3136, 512, device),
-            "out": core.linear_init(gen, 512, self.num_actions, device),
+            "out": (core.linear_shared_bias_init if self.shared_bias
+                    else core.linear_init)(gen, 512, self.num_actions,
+                                           device),
         },
     }
 
@@ -64,6 +69,11 @@ class DqnAtariNetwork:
 
 def dqn_atari_network(num_actions: int) -> DqnAtariNetwork:
   return DqnAtariNetwork(num_actions)
+
+
+def double_dqn_atari_network(num_actions: int) -> DqnAtariNetwork:
+  """The DQN net with a shared-bias last layer (JAX nets/atari.py:133)."""
+  return DqnAtariNetwork(num_actions, shared_bias=True)
 
 
 class IqnInputs(NamedTuple):

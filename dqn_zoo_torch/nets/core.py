@@ -38,6 +38,16 @@ def linear_init(gen, fan_in: int, num_outputs: int, device) -> Params:
           "b": legacy_uniform_init(gen, (num_outputs,), fan_in, device)}
 
 
+def linear_shared_bias_init(gen, fan_in: int, num_outputs: int,
+                            device) -> Params:
+  """A dense layer with one (1,) bias broadcast over all outputs (the
+  double-Q network's last layer, nets/core.py:156-181 of the JAX package);
+  `linear` applies it."""
+  return {"w": legacy_uniform_init(gen, (fan_in, num_outputs), fan_in,
+                                   device),
+          "b": legacy_uniform_init(gen, (1,), fan_in, device)}
+
+
 def hwio_to_oihw(w: torch.Tensor) -> torch.Tensor:
   return w.permute(3, 2, 0, 1)
 
@@ -50,6 +60,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def linear(x: torch.Tensor, p: Params) -> torch.Tensor:
+  """x @ w + b; a (1,) bias broadcasts over the outputs."""
   return x @ p["w"] + p["b"]
 
 

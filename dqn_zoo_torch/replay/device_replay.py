@@ -10,8 +10,13 @@ slot t mod C deactivates that slot and the K-1 after it, whose stacks would
 need frames older than the ring. Rows C..C+W-2 of the frame store mirror
 slots 0..W-2 so that no window wraps; row C+W-1 is a write sink.
 
-This slice ports the uniform path: priority_exponent > 0 raises until the
-prioritized slice. `replay_insert` updates the state IN PLACE.
+Priorities live in two fanout trees: `value_tree` holds priority^α of the
+active rows (0 elsewhere, the reference's 0^0 = 0 rule), `indicator_tree`
+1.0 at active rows. A sample mixes uniform-over-active (with probability
+`uniform_sample_probability`) and proportional draws. Uniform replay
+(α = 0) keeps one tree: the value tree is the indicator tree, and a sample
+is one query of it with IS weights of one. `replay_insert` and
+`replay_update_priorities` update the state IN PLACE.
 
 Invariants (C = slots per stream, n = n_step, K = stack size): C > n + K;
 active ⇔ indicator leaf == 1 ⇔ the row yields a well-defined transition.
@@ -35,14 +40,18 @@ class ReplayConfig:
   n_step: int = 1
   stack_size: int = 4
   frame_size: int = 84
-  priority_exponent: float = 0.0
+  priority_exponent: float = 0.0  # α; 0 → uniform replay
+  uniform_sample_probability: float = 0.0  # mixture weight
+  normalize_weights: bool = True
+  # IS weights are divided by their max over each chunk of this many
+  # samples (the reference's batch), so that a big batch keeps the
+  # reference's per-update weight scale; 0, or a chunk that does not divide
+  # the batch into several, takes one max over the batch.
+  normalize_weights_chunk: int = 0
 
   def __post_init__(self):
     if self.slots_per_stream <= self.n_step + self.stack_size:
       raise ValueError("slots_per_stream must exceed n_step + stack_size")
-    if self.priority_exponent > 0.0:
-      raise NotImplementedError(
-          "prioritized replay (priority_exponent > 0) is not ported yet.")
 
   @property
   def window(self) -> int:
@@ -62,8 +71,10 @@ class ReplayState(NamedTuple):
   discount: torch.Tensor  # (S, C) float32
   is_terminal: torch.Tensor  # (S, C) bool
   row_t: torch.Tensor  # (S, C) int32 — global step of the row, -1 if empty
+  value_tree: ft.Tree  # priority^α at active rows; the indicator tree if α = 0
   indicator_tree: ft.Tree  # 1.0 at active rows
   t: int  # rows inserted per stream so far
+  max_seen_priority: torch.Tensor  # () float32; new rows get it^α
 
 
 class TransitionBatch(NamedTuple):
@@ -74,9 +85,17 @@ class TransitionBatch(NamedTuple):
   s_t: torch.Tensor  # (B, F, F, K) uint8
 
 
+def _pexp(priorities: torch.Tensor, exponent: float) -> torch.Tensor:
+  """priority^exponent with the reference's 0^0 = 0 rule."""
+  return torch.where(priorities > 0.0,
+                     torch.pow(torch.clamp(priorities, min=1e-30), exponent),
+                     torch.zeros_like(priorities))
+
+
 def replay_init(cfg: ReplayConfig, device) -> ReplayState:
   s, c, f = cfg.num_streams, cfg.slots_per_stream, cfg.frame_size
   kw = dict(device=device)
+  ind = ft.fanout_init(s * c, device)
   return ReplayState(
       frames=torch.zeros((s, cfg.slots_padded, f, f), dtype=torch.uint8, **kw),
       stack_count=torch.ones((s, c), dtype=torch.int32, **kw),
@@ -85,8 +104,11 @@ def replay_init(cfg: ReplayConfig, device) -> ReplayState:
       discount=torch.zeros((s, c), dtype=torch.float32, **kw),
       is_terminal=torch.zeros((s, c), dtype=torch.bool, **kw),
       row_t=torch.full((s, c), -1, dtype=torch.int32, **kw),
-      indicator_tree=ft.fanout_init(s * c, device),
+      value_tree=(ft.fanout_init(s * c, device) if cfg.priority_exponent > 0
+                  else ind),
+      indicator_tree=ind,
       t=0,
+      max_seen_priority=torch.ones((), dtype=torch.float32, **kw),
   )
 
 
@@ -130,10 +152,16 @@ def replay_insert(cfg: ReplayConfig, state: ReplayState,
   pairs += [activation(t - off, is_terminal) for off in range(1, n)]
   act_ids = torch.cat([p[0] for p in pairs])
   act_masks = torch.cat([p[1] for p in pairs])
+  all_ids = torch.cat([kill_ids, act_ids])
+  kills = torch.zeros(kill_ids.shape, device=dev)
   cur = ft.fanout_get(ind, act_ids)
-  writes = torch.cat([torch.zeros(kill_ids.shape, device=dev),
-                      torch.where(act_masks, 1.0, cur)])
-  ft.fanout_set(ind, torch.cat([kill_ids, act_ids]), writes)
+  ft.fanout_set(ind, all_ids,
+                torch.cat([kills, torch.where(act_masks, 1.0, cur)]))
+  if cfg.priority_exponent > 0.0:
+    prio = _pexp(state.max_seen_priority, cfg.priority_exponent)
+    cur = ft.fanout_get(state.value_tree, act_ids)
+    ft.fanout_set(state.value_tree, all_ids,
+                  torch.cat([kills, torch.where(act_masks, prio, cur)]))
   return state._replace(t=t + 1)
 
 
@@ -156,17 +184,31 @@ def _stack_from_window(cfg: ReplayConfig, windows: torch.Tensor,
 
 
 def replay_sample(cfg: ReplayConfig, state: ReplayState,
-                  uniforms: torch.Tensor
+                  uniforms: torch.Tensor,
+                  importance_sampling_exponent: float = 0.0
                   ) -> Tuple[TransitionBatch, torch.Tensor, torch.Tensor]:
-  """Samples len(uniforms) transitions uniformly over active rows.
+  """Samples B transitions; returns (batch, leaf indices, IS weights).
 
-  uniforms: (B,) U[0, 1) draws. Returns (batch, leaf indices, IS weights);
-  the weights are all ones on the uniform path."""
+  Uniform replay (α = 0): `uniforms` is (B,) U[0, 1), one query of the
+  indicator tree, weights all ones. Prioritized: `uniforms` is (3, B), the
+  streams u, p and mix that the JAX package splits its key into: with
+  probability `uniform_sample_probability` (mix < it) uniform over active
+  rows by u, else proportional to priority^α by p. The IS weights are
+  (1 / (P(i) · N))^β with the mixture probabilities, normalized as the
+  config says."""
   c, n, k = cfg.slots_per_stream, cfg.n_step, cfg.stack_size
-  b = uniforms.shape[0]
   n_active = ft.fanout_total(state.indicator_tree)
-  leaves = ft.fanout_query(state.indicator_tree,
-                           uniforms.to(torch.float32) * n_active)
+  if cfg.priority_exponent == 0.0:
+    leaves = ft.fanout_query(state.indicator_tree,
+                             uniforms.to(torch.float32) * n_active)
+  else:
+    u, p, mix = uniforms.to(torch.float32)
+    total_p = ft.fanout_total(state.value_tree)
+    leaves = torch.where(
+        mix < cfg.uniform_sample_probability,
+        ft.fanout_query(state.indicator_tree, u * n_active),
+        ft.fanout_query(state.value_tree, p * total_p))
+  b = leaves.shape[0]
   stream = leaves // c
   slot = leaves % c
   k_step = state.row_t[stream, slot].long()
@@ -200,7 +242,49 @@ def replay_sample(cfg: ReplayConfig, state: ReplayState,
       discount_t=cum_disc,
       s_t=_stack_from_window(cfg, windows, count_t, off_tm1 + m_star),
   )
-  return batch, leaves, torch.ones((b,), dtype=torch.float32, device=dev)
+  if cfg.priority_exponent == 0.0:
+    return batch, leaves, torch.ones((b,), dtype=torch.float32, device=dev)
+  num = torch.clamp(n_active, min=1.0)
+  probs = (1.0 - cfg.uniform_sample_probability) \
+      * ft.fanout_get(state.value_tree, leaves) \
+      / torch.clamp(total_p, min=1e-30) \
+      + cfg.uniform_sample_probability / num
+  weights = importance_sampling_weights(probs, num,
+                                        importance_sampling_exponent,
+                                        normalize=False)
+  if cfg.normalize_weights:
+    chunk = cfg.normalize_weights_chunk
+    if not (0 < chunk < b and b % chunk == 0):
+      chunk = b
+    w = weights.view(b // chunk, chunk)
+    weights = (w / torch.clamp(w.max(dim=1, keepdim=True).values, min=1e-30)
+               ).view(b)
+  return batch, leaves, weights
+
+
+def replay_update_priorities(cfg: ReplayConfig, state: ReplayState,
+                             leaves: torch.Tensor,
+                             priorities: torch.Tensor) -> None:
+  """Sets the raw priorities of sampled rows IN PLACE (rows that went
+  inactive since the sample keep their 0); a leaf sampled twice takes its
+  last priority. Raises `max_seen_priority` to the largest of them."""
+  still_active = ft.fanout_get(state.indicator_tree, leaves) > 0.0
+  cur = ft.fanout_get(state.value_tree, leaves)
+  ft.fanout_set(state.value_tree, leaves,
+                torch.where(still_active,
+                            _pexp(priorities, cfg.priority_exponent), cur))
+  torch.maximum(state.max_seen_priority, priorities.max(),
+                out=state.max_seen_priority)
+
+
+def importance_sampling_weights(probs: torch.Tensor, num,
+                                exponent: float,
+                                normalize: bool = True) -> torch.Tensor:
+  """(1 / (P(i) · N))^β, divided by its max when `normalize`."""
+  w = torch.pow(1.0 / (torch.clamp(probs, min=1e-30) * num), exponent)
+  if normalize:
+    w = w / torch.clamp(w.max(), min=1e-30)
+  return w
 
 
 def replay_size(state: ReplayState) -> torch.Tensor:

@@ -32,12 +32,38 @@ def fanout_init(capacity: int, device) -> Tree:
   return levels
 
 
+def _last_write_values(indices: torch.Tensor,
+                       values: torch.Tensor) -> torch.Tensor:
+  """`values` with every duplicate of an index given the value of that
+  index's last occurrence, so that a scatter of them, which keeps an
+  arbitrary one of duplicate writes, keeps the last. A stable sort by index
+  puts each index's writes in one run in their original order; each
+  position reads the value at the end of its run. No atomics, and no read
+  back to the host."""
+  n = indices.shape[0]
+  if n < 2:
+    return values
+  order = torch.argsort(indices, stable=True)
+  run = indices[order]
+  pos = torch.arange(n, device=indices.device)
+  run_end = torch.ones((n,), dtype=torch.bool, device=indices.device)
+  run_end[:-1] = run[1:] != run[:-1]
+  end = torch.where(run_end, pos, n)
+  end = torch.flip(torch.cummin(torch.flip(end, (0,)), 0).values, (0,))
+  out = torch.empty_like(values)
+  out[order] = values[order][end]
+  return out
+
+
 def fanout_set(tree: Tree, indices: torch.Tensor,
                values: torch.Tensor) -> None:
   """Sets leaves at `indices` to `values` in place and re-sums the touched
-  ancestor rows. Indices must be distinct wherever their values differ
-  (a CUDA scatter keeps an arbitrary one of duplicate writes)."""
-  tree[0][indices] = values.to(torch.float32)
+  ancestor rows. Duplicate indices: the last write wins, as in the JAX
+  package. A duplicated parent gathers the same re-written row and writes
+  the same sum."""
+  indices = indices.reshape(-1)
+  values = _last_write_values(indices, values.reshape(-1).to(torch.float32))
+  tree[0][indices] = values
   node = indices
   for k in range(len(tree) - 1):
     node = node // RADIX

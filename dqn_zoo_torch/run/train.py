@@ -6,7 +6,9 @@ The reference's run protocol: iterations of (train phase, eval phase),
 iteration 0 eval-only, one CSV row and one log line per iteration with the
 reference's 13 fields plus `eval_frames`. Flag names are the JAX CLI's;
 flags of parts not ported yet (checkpoints, the PIL resize, multi-device)
-raise when set. Agents: dqn and iqn. Runs on CUDA unless --device=cpu.
+raise when set. Agents: dqn, double_q, prioritized and iqn (each also has
+its runner, `python -m dqn_zoo_torch.run.agents.<agent>`). Games: pong and
+catch. Runs on CUDA unless --device=cpu.
 """
 
 from __future__ import annotations
@@ -29,7 +31,9 @@ _SPEC_FLOATS = (
     "learning_rate", "optimizer_epsilon", "exploration_epsilon_begin_value",
     "exploration_epsilon_end_value", "exploration_epsilon_decay_frame_fraction",
     "eval_exploration_epsilon", "grad_error_bound", "max_global_grad_norm",
-    "priority_exponent", "huber_param")
+    "priority_exponent", "importance_sampling_exponent_begin_value",
+    "importance_sampling_exponent_end_value", "uniform_sample_probability",
+    "huber_param")
 _SPEC_INTS = ("target_network_update_period", "learn_period", "n_steps",
               "tau_latent_dim", "tau_samples_policy", "tau_samples_s_tm1",
               "tau_samples_s_t")
@@ -38,7 +42,19 @@ _SPEC_FIELD = {
     "exploration_epsilon_begin_value": "exploration_epsilon_begin",
     "exploration_epsilon_end_value": "exploration_epsilon_end",
     "n_steps": "n_step",
+    "importance_sampling_exponent_begin_value": "importance_sampling_begin",
+    "importance_sampling_exponent_end_value": "importance_sampling_end",
 }
+
+
+def _bool(text: str) -> bool:
+  """absl's spellings of a boolean flag's value."""
+  low = text.lower()
+  if low in ("1", "true", "t", "yes", "y"):
+    return True
+  if low in ("0", "false", "f", "no", "n"):
+    return False
+  raise argparse.ArgumentTypeError(f"not a boolean: {text!r}")
 
 
 def build_engine(agent_name: str, game: str, num_envs: int,
@@ -123,6 +139,11 @@ def _parser() -> argparse.ArgumentParser:
     add(f"--{name}", type=float, default=None)
   for name in _SPEC_INTS:
     add(f"--{name}", type=int, default=0)
+  # A boolean as absl spells it: --normalize_weights[=true|false] or
+  # --nonormalize_weights; unset keeps the agent's default.
+  add("--normalize_weights", type=_bool, nargs="?", const=True, default=None)
+  add("--nonormalize_weights", dest="normalize_weights",
+      action="store_false")
   return p
 
 
@@ -145,6 +166,8 @@ def _spec_overrides(args) -> dict:
   for name in _SPEC_INTS:
     if getattr(args, name) > 0:
       out[_SPEC_FIELD.get(name, name)] = getattr(args, name)
+  if args.normalize_weights is not None:
+    out["normalize_weights"] = args.normalize_weights
   if args.compute_dtype:
     out["compute_dtype"] = args.compute_dtype
   return out
@@ -233,7 +256,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
   writer.close()
 
 
-if __name__ == "__main__":
+def cli(argv: Optional[Sequence[str]] = None) -> None:
+  """`main` with INFO logging on, as the command line runs it."""
   logging.basicConfig(level=logging.INFO,
                       format="%(asctime)s %(levelname)s %(message)s")
-  main()
+  main(argv)
+
+
+if __name__ == "__main__":
+  cli()

@@ -19,6 +19,10 @@ _CASES = [
          compute_dtype="float32", num_action_repeats=4, num_stacked_frames=4),
     # Nothing set: no overrides at all.
     dict(),
+    # A reference prioritized command line.
+    dict(priority_exponent=0.5, importance_sampling_exponent_begin_value=0.5,
+         importance_sampling_exponent_end_value=0.9,
+         uniform_sample_probability=0.01, normalize_weights=False),
 ]
 
 
@@ -32,7 +36,8 @@ def _jax_overrides(values: dict) -> dict:
     return jtrain._spec_overrides_from_flags()
 
 
-@pytest.mark.parametrize("values", _CASES, ids=["iqn", "dqn_family", "unset"])
+@pytest.mark.parametrize("values", _CASES,
+                         ids=["iqn", "dqn_family", "unset", "prioritized"])
 def test_spec_overrides_match_the_jax_cli(values):
   argv = ["--agent=iqn"] + _argv(values)
   ours = ttrain._spec_overrides(ttrain._parser().parse_args(argv))
@@ -40,6 +45,14 @@ def test_spec_overrides_match_the_jax_cli(values):
   for name in ("huber_param", "tau_latent_dim", "tau_samples_policy",
                "tau_samples_s_tm1", "tau_samples_s_t", "compute_dtype"):
     assert (name in ours) == (name in values), name
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--normalize_weights"], True), (["--nonormalize_weights"], False),
+    (["--normalize_weights=false"], False), ([], None)])
+def test_normalize_weights_spellings(argv, want):
+  ours = ttrain._spec_overrides(ttrain._parser().parse_args(argv))
+  assert ours.get("normalize_weights") == want
 
 
 def test_iqn_flags_reach_the_engine_spec():

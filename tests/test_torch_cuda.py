@@ -445,3 +445,68 @@ def test_every_kernel_builds(dev):
   assert sources == {p.name for p in kernels.CSRC.glob("*.cu")}
   for k in kernels.REGISTRY.values():
     assert k._func() is not None
+
+
+# --- prioritized replay on the card (no kernel of its own: the trees are
+# PyTorch ops, whose CUDA scatter keeps an arbitrary one of duplicate writes)
+
+
+@pytest.mark.parametrize("leaves", [20, 1])
+def test_fanout_set_last_write_wins_on_the_card(dev, leaves):
+  from dqn_zoo_torch.replay import fanout_tree as ft
+  g = _gen(21)
+  idx = torch.randint(0, leaves, (2048,), generator=g, device=dev)
+  val = torch.rand((2048,), generator=g, device=dev)
+  last = dict(zip(idx.tolist(), val.tolist()))
+  for _ in range(3):  # the same bits on every repeat
+    tree = ft.fanout_init(300, dev)
+    ft.fanout_set(tree, idx, val)
+    for i, v in last.items():
+      assert float(tree[0][i]) == v
+    want = tree[0].view(-1, 128).sum(-1)
+    assert torch.equal(tree[1], want)
+
+
+def test_prioritized_replay_on_the_card_matches_the_cpu(dev):
+  """Inserts, a mixture sample with IS weights and a priority write with
+  repeated leaves, on the card and on the CPU from the same rows. Dyadic
+  priorities (α = 0.5 of squares of halves) keep every tree sum exact, so
+  leaves, samples and trees agree exactly; weights rtol 1e-6."""
+  from dqn_zoo_torch.replay import device_replay as dr
+  cfg = dr.ReplayConfig(num_streams=6, slots_per_stream=40,
+                        priority_exponent=0.5, uniform_sample_probability=0.25,
+                        normalize_weights_chunk=32)
+  states = {d: dr.replay_init(cfg, d) for d in ("cpu", dev)}
+  rng = np.random.RandomState(5)
+  for step in range(50):
+    row = dict(
+        frame=rng.randint(0, 256, (6, 84, 84)).astype(np.uint8),
+        stack_count=np.full(6, min(step + 1, 4), np.int32),
+        action=rng.randint(0, 6, 6).astype(np.int32),
+        reward=rng.choice([-1.0, 0.0, 1.0], 6).astype(np.float32),
+        discount=np.full(6, 0.99, np.float32),
+        is_terminal=rng.uniform(size=6) < 0.1)
+    u = torch.from_numpy(rng.uniform(size=(3, 64)).astype(np.float32))
+    prio = torch.from_numpy(rng.choice(
+        np.array([0.25, 1.0, 2.25, 4.0], np.float32), 64))
+    got = {}
+    for d, st in states.items():
+      st = dr.replay_insert(cfg, st, **{k: torch.from_numpy(v).to(d)
+                                        for k, v in row.items()})
+      states[d] = st
+      if int(dr.replay_size(st)) < 8:
+        continue
+      batch, leaves, weights = dr.replay_sample(cfg, st, u.to(d), 0.6)
+      dr.replay_update_priorities(cfg, st, leaves, prio.to(d))
+      got[d] = (batch, leaves, weights, st)
+    if not got:
+      continue
+    (cb, cl, cw, cs), (gb, gl, gw, gs) = got["cpu"], got[dev]
+    assert torch.equal(cl, gl.cpu())
+    for a, b in zip(cb, gb):
+      assert torch.equal(a, b.cpu())
+    torch.testing.assert_close(gw.cpu(), cw, rtol=1e-6, atol=0)
+    for a, b in zip(cs.value_tree + cs.indicator_tree,
+                    gs.value_tree + gs.indicator_tree):
+      assert torch.equal(a, b.cpu())
+    assert torch.equal(cs.max_seen_priority, gs.max_seen_priority.cpu())

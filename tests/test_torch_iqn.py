@@ -270,7 +270,7 @@ def test_iqn_spec_has_the_jax_values():
       continue
     assert getattr(tspec, f.name) == getattr(jspec, f.name), f.name
   assert tspec.act_takes_taus and not get_agent("dqn").act_takes_taus
-  assert all_agent_names() == ["dqn", "iqn"]
+  assert all_agent_names() == ["double_q", "dqn", "iqn", "prioritized"]
 
 
 @pytest.mark.parametrize("epsilon", [0.0, 0.5])

@@ -28,7 +28,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      then one eval chunk; check the loss, the outputs, that the parameters
      moved and that every kernel of that path was launched as often as the
      path says;
-  6. print the kernels line, the card's name and power limit, and last the
+  6. checkpoint/resume of the dqn/pong trainer at 5.'s shapes (RESUME):
+     save with and without the replay (the 7.06 GB frame store), restore
+     into a second engine and require every entry bit for bit; 40
+     supersteps from the live state, from a copy of it and from the
+     restored state under cuDNN's deterministic algorithms, all three bit
+     for bit (the default algorithms' run-to-run spread is printed); then
+     two legs of the CLI, the first cut partway through its train phase by
+     --max_run_seconds, the second resuming at the saved superstep; it
+     prints the save and restore seconds, the checkpoint bytes and the
+     peak memory on the card and the host;
+  7. print the kernels line, the card's name and power limit, and last the
      result line {"ok": true, "device": {...}}.
 The launch counters are set to 0 just before each path and read just after.
 Needs a CUDA card; imports nothing of JAX or of dqn_zoo_tpu.
@@ -87,6 +97,8 @@ PATH_KERNELS = {
     "iqn": ("gather_windows", "pooled_frame_to_84", "dqn_torso_fwd",
             "dqn_torso_fwd_residuals", "iqn_head_fwd",
             "iqn_head_fwd_residuals", "iqn_head_bwd_w", "iqn_head_bwd_d"),
+    "resume": ("gather_windows", "pooled_frame_to_84", "dqn_torso_fwd",
+               "dqn_torso_fwd_residuals"),
 }
 
 
@@ -1056,6 +1068,210 @@ def phase_iqn_path(dev):
   return counts
 
 
+def _same_bits(a, b) -> bool:
+  """Tensors equal bit for bit (NaNs included), or numbers equal."""
+  if isinstance(a, torch.Tensor):
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).contiguous().view(torch.uint8),
+        b.reshape(-1).contiguous().view(torch.uint8)))
+  return type(a) is type(b) and a == b
+
+
+def _state_spread(got, want) -> dict:
+  """{path: max abs difference} over the entries of two engine states that
+  differ in any bit (a generator's state or a number: inf)."""
+  from dqn_zoo_torch.run.checkpoint import flatten_state
+  g, w = flatten_state(got), flatten_state(want)
+  if sorted(g) != sorted(w):
+    fail("two engine states with different entries")
+  out = {}
+  for k in w:
+    if _same_bits(g[k], w[k]):
+      continue
+    if isinstance(w[k], torch.Tensor) and w[k].is_floating_point():
+      out[k] = float((g[k] - w[k]).abs().max())
+    else:
+      out[k] = math.inf
+  return out
+
+
+def _host_peak_gb() -> float:
+  """Peak resident memory of this process so far (ru_maxrss, KiB)."""
+  import resource
+  return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def phase_resume_path(dev):
+  """Checkpoint/resume on the card at dqn/pong's CLI defaults (MAIN's
+  lowered min fill): train through a learning window, save with and
+  without the replay, restore into a second engine and require every
+  entry bit for bit; run `window` supersteps from the live state, from a
+  copy of it in memory and from the restored state under cuDNN's
+  deterministic algorithms and require all three bit for bit, then the
+  live two further under the default ones to print their spread; then two
+  legs of the CLI, the first cut by --max_run_seconds partway through its
+  train phase, the second resuming there. Returns the launch counts."""
+  import shutil
+  from dqn_zoo_torch import kernels
+  from dqn_zoo_torch.run import checkpoint as ckpt
+  from dqn_zoo_torch.run import train
+
+  num_envs, replay_capacity, min_fill = 128, 1_000_000, 0.002
+  warm = 60  # the learn gate opens at superstep ~18: ~40 learn steps
+  window = 40
+  # The CLI legs' train phase, and the first leg's budget: ~1.5 s of eval,
+  # then 200-470 of the 800 supersteps at 18-43 ms each.
+  leg_supersteps, leg_budget_s = 800, 10
+  root = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".ckpt",
+                      "chip_smoke")
+  shutil.rmtree(root, ignore_errors=True)
+  sync = torch.cuda.synchronize
+
+  def make():
+    return train.build_engine("dqn", "pong", num_envs=num_envs,
+                              replay_capacity=replay_capacity,
+                              min_replay_capacity_fraction=min_fill,
+                              device=dev)
+
+  kernels.reset_counts()
+  engine = make()
+  live = engine.run(engine.init(seed=1), warm)
+  sync()
+  if live.telemetry.learn_steps < 20:
+    fail(f"RESUME: only {live.telemetry.learn_steps} learn steps before "
+         "the save")
+
+  saved_learn_steps = live.telemetry.learn_steps
+
+  # 1. Save, with the replay and without it.
+  host_before = _host_peak_gb()
+  full = ckpt.TorchCheckpoint(os.path.join(root, "full"))
+  t0 = time.perf_counter()
+  full.save(live, iteration=1, writer_state={}, train_done=warm)
+  save_s = time.perf_counter() - t0
+  host_after_save = _host_peak_gb()
+  lite = ckpt.TorchCheckpoint(os.path.join(root, "replayless"))
+  t0 = time.perf_counter()
+  train.save_checkpoint(lite, live, 1, {}, warm, checkpoint_replay=False)
+  lite_save_s = time.perf_counter() - t0
+
+  # 2. Restore into a second engine: first without the replay, then with
+  # it, each into the same template. Loaded on the host, copied in place.
+  engine_b = make()
+  template = engine_b.init(seed=2)
+  sync()
+  torch.cuda.reset_peak_memory_stats()
+  card_before = torch.cuda.memory_allocated()
+  t0 = time.perf_counter()
+  train.restore_checkpoint(lite, template, checkpoint_replay=False)
+  sync()
+  lite_restore_s = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  restored, iteration, _, train_done = full.restore(template)
+  sync()
+  restore_s = time.perf_counter() - t0
+  card_extra = torch.cuda.max_memory_allocated() - card_before
+  host_after_restore = _host_peak_gb()
+  if (iteration, train_done) != (1, warm):
+    fail(f"RESUME: restored iteration {iteration}, train_done {train_done}")
+  differ = _state_spread(restored, live)
+  if differ:
+    fail(f"RESUME: the restored state differs from the saved one: {differ}")
+  if restored.replay.value_tree is not restored.replay.indicator_tree:
+    fail("RESUME: the uniform replay's tree was split by the restore")
+
+  # 3. The same supersteps from the live state, from a copy of it in
+  # memory and from the restored state. The cuDNN weight gradients of the
+  # torso backward are not deterministic on the card (two runs from one
+  # state part in the last bits and drift apart), so these runs take
+  # cuDNN's deterministic algorithms: the two live runs must agree bit for
+  # bit, and the restored run must equal them. Then the two live runs go
+  # on under the default algorithms, and their spread is printed.
+  engine_c = make()
+  copy = ckpt.restore_state(engine_c.init(seed=3), ckpt.flatten_state(live))
+  deterministic = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+  try:
+    live = engine.run(live, window)
+    copy = engine_c.run(copy, window)
+    sync()
+    counts_before = kernels.counts()
+    restored = engine_b.run(restored, window)
+    sync()
+  finally:
+    torch.backends.cudnn.deterministic = deterministic
+  after_restore = {k: v - counts_before[k]
+                   for k, v in kernels.counts().items()}
+  spread = _state_spread(copy, live)
+  if spread:
+    fail(f"RESUME: two runs from one state differ under cuDNN's "
+         f"deterministic algorithms: {spread}")
+  deviation = _state_spread(restored, live)
+  if deviation:
+    fail(f"RESUME: two runs from one state agree bit for bit, the restored "
+         f"run differs: {deviation}")
+  live = engine.run(live, window)
+  copy = engine_c.run(copy, window)
+  sync()
+  default_spread = _state_spread(copy, live)
+  for name in PATH_KERNELS["resume"]:
+    if after_restore[name] == 0:
+      fail(f"RESUME: kernel {name} was not launched after the restore")
+  learn_steps = restored.telemetry.learn_steps
+  del engine, engine_b, engine_c, live, copy, restored, template
+  torch.cuda.empty_cache()
+
+  # 4. Two legs of the CLI: the first cut partway through its train phase
+  # by the budget, the second resuming at the saved train_done.
+  cli = os.path.join(root, "cli")
+  csv_path = os.path.join(root, "cli.csv")
+  argv = ["--agent=dqn", "--environment_name=pong", "--device=cuda",
+          f"--num_envs={num_envs}", f"--replay_capacity={replay_capacity}",
+          f"--min_replay_capacity_fraction={min_fill}", "--num_iterations=1",
+          f"--num_train_frames={4 * num_envs * leg_supersteps}",
+          f"--num_eval_frames={4 * 4 * 100}", "--eval_num_envs=4",
+          f"--checkpoint_path={cli}", f"--results_csv_path={csv_path}",
+          "--checkpoint_replay=false", "--save_interval_seconds=4"]
+  t0 = time.perf_counter()
+  train.main(argv + [f"--max_run_seconds={leg_budget_s}"])
+  leg1_s = time.perf_counter() - t0
+  meta = ckpt.TorchCheckpoint(cli).meta()
+  if meta["iteration"] != 1 or not 0 < meta["train_done"] < leg_supersteps:
+    fail(f"RESUME: the first CLI leg did not stop partway through train: "
+         f"{meta}")
+  t0 = time.perf_counter()
+  final = train.main(argv)
+  leg2_s = time.perf_counter() - t0
+  with open(csv_path) as f:
+    rows = [int(line.split(",")[0]) for line in f.readlines()[1:]]
+  if rows != [0, 1]:
+    fail(f"RESUME: the CSV holds iterations {rows}, not [0, 1]")
+  if final.superstep != leg_supersteps:
+    fail(f"RESUME: the legs ran {final.superstep} supersteps, not "
+         f"{leg_supersteps}")
+  counts = kernels.counts()
+  summary = dict(
+      supersteps_before_save=warm, learn_steps_before_save=saved_learn_steps,
+      window_supersteps=window, learn_steps_after_window=learn_steps,
+      save_s=save_s, restore_s=restore_s,
+      replayless_save_s=lite_save_s, replayless_restore_s=lite_restore_s,
+      checkpoint_bytes=os.path.getsize(full.state_path()),
+      replayless_checkpoint_bytes=os.path.getsize(lite.state_path()),
+      restore_card_peak_extra_gb=card_extra / 1e9,
+      host_peak_gb_before_save=host_before,
+      host_peak_gb_after_save=host_after_save,
+      host_peak_gb_after_restore=host_after_restore,
+      card_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+      restored_exact=True, restored_run_bit_identical=True,
+      default_cudnn_run_to_run_spread=default_spread,
+      launches_after_restore=after_restore,
+      cli_leg1_train_done=meta["train_done"], cli_leg1_s=leg1_s,
+      cli_leg2_s=leg2_s, cli_csv_iterations=rows)
+  print("RESUME " + json.dumps(summary), flush=True)
+  shutil.rmtree(root, ignore_errors=True)
+  return counts
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA card; nothing was run.", file=sys.stderr)
@@ -1100,7 +1316,8 @@ def main() -> int:
   path_counts = {}
   for path, phase in (("dqn", phase_main_path),
                       ("prioritized", phase_per_path),
-                      ("iqn", phase_iqn_path)):
+                      ("iqn", phase_iqn_path),
+                      ("resume", phase_resume_path)):
     torch.cuda.empty_cache()
     path_counts[path] = phase(dev)
 

@@ -5,10 +5,19 @@ Usage: python -m dqn_zoo_torch.run.train --agent=dqn --environment_name=pong
 The reference's run protocol: iterations of (train phase, eval phase),
 iteration 0 eval-only, one CSV row and one log line per iteration with the
 reference's 13 fields plus `eval_frames`. Flag names are the JAX CLI's;
-flags of parts not ported yet (checkpoints, the PIL resize, multi-device)
-raise when set. Agents: dqn, double_q, prioritized and iqn (each also has
+flags of parts not ported yet (the PIL resize, multi-device) raise when
+set. Agents: dqn, double_q, prioritized and iqn (each also has
 its runner, `python -m dqn_zoo_torch.run.agents.<agent>`). Games: pong and
 catch. Runs on CUDA unless --device=cpu.
+
+Checkpoint/resume as the JAX CLI has it: --checkpoint_path keeps one slot
+of the full state (run/checkpoint.py); a run that finds it resumes there,
+partway through an iteration's train phase if it was saved there. The
+train phase runs in chunks of at most TRAIN_CHUNK supersteps with a fence
+after each, where --max_run_seconds (from the first fence after
+engine.init) is checked and mid-train saves are made, so that a training
+run can be cut at a wall-clock budget and go on in a new process as if it
+had never stopped (tools/torch_chain_train.sh chains such legs).
 """
 
 from __future__ import annotations
@@ -18,12 +27,16 @@ import collections
 import dataclasses
 import logging
 import math
+import time
 from typing import Optional, Sequence
+
+import torch
 
 from dqn_zoo_torch.agents import all_agent_names, get_agent
 from dqn_zoo_torch.engine import Engine, EngineConfig
 from dqn_zoo_torch.envs.vector import VectorEnvConfig
 from dqn_zoo_torch.run import atari_data
+from dqn_zoo_torch.run.checkpoint import NullCheckpoint, TorchCheckpoint
 from dqn_zoo_torch.run.trackers import StepRateTracker
 from dqn_zoo_torch.run.writers import CsvWriter, NullWriter
 
@@ -37,6 +50,8 @@ _SPEC_FLOATS = (
 _SPEC_INTS = ("target_network_update_period", "learn_period", "n_steps",
               "tau_latent_dim", "tau_samples_policy", "tau_samples_s_tm1",
               "tau_samples_s_t")
+# Supersteps between the train phase's fences (budget checks, saves).
+TRAIN_CHUNK = 100
 # Flag name -> AgentSpec field, where they differ.
 _SPEC_FIELD = {
     "exploration_epsilon_begin_value": "exploration_epsilon_begin",
@@ -122,7 +137,21 @@ def _parser() -> argparse.ArgumentParser:
   add("--num_eval_frames", type=int, default=int(5e5))
   add("--seed", type=int, default=1)
   add("--results_csv_path", default="/tmp/results.csv")
-  add("--checkpoint_path", default="")
+  add("--checkpoint_path", default="", help="Empty disables checkpoints.")
+  add("--checkpoint_replay", type=_bool, nargs="?", const=True, default=True,
+      help="Include the replay in checkpoints (exact resumes); false leaves "
+      "out the multi-GB frame store and the min fill refills it.")
+  add("--nocheckpoint_replay", dest="checkpoint_replay", action="store_false")
+  add("--checkpoint_period", type=int, default=1,
+      help="Save every N iterations (and always before an exit).")
+  add("--iterations_per_run", type=int, default=0,
+      help="Exit after this many iterations (0 = run to num_iterations).")
+  add("--max_run_seconds", type=int, default=0,
+      help="Wall-clock budget from the first fence after engine.init; past "
+      "it, save (mid-iteration if need be) and exit. 0 disables.")
+  add("--save_interval_seconds", type=int, default=0,
+      help="Also save mid-train every N seconds (0 = only at iteration ends "
+      "and budget exits).")
   add("--replay_ratio_mode", default="throughput",
       choices=["parity", "throughput"])
   add("--resize_method", default="fast", choices=["fast", "pil"])
@@ -173,10 +202,42 @@ def _spec_overrides(args) -> dict:
   return out
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def save_checkpoint(checkpoint, state, iteration: int, writer_state,
+                    train_done: int, checkpoint_replay: bool) -> None:
+  """Saves as the CLI does: without the replay, its insert counter and
+  max-seen priority go into the meta file's extras."""
+  extras = None
+  if not checkpoint_replay:
+    extras = {"replay_t": state.replay.t,
+              "replay_max_priority": float(state.replay.max_seen_priority)}
+    state = state._replace(replay=None)
+  checkpoint.save(state, iteration, writer_state, train_done=train_done,
+                  extras=extras)
+
+
+def restore_checkpoint(checkpoint, template, checkpoint_replay: bool):
+  """(state, iteration, writer state, train_done), restored in place into
+  `template`, a state that engine.init built. Without the replay the run
+  keeps the template's fresh replay, given the saved insert counter and
+  max-seen priority (dqn_zoo_tpu/run/train.py:332-345): the IS-exponent
+  anneal runs on inserts and new rows enter at the running max; the
+  min-fill gate refills the rest."""
+  if checkpoint_replay:
+    return checkpoint.restore(template)
+  replay = template.replay
+  state, iteration, writer_state, train_done = checkpoint.restore(
+      template._replace(replay=None))
+  extras = checkpoint.restore_extras()
+  if "replay_t" in extras:
+    replay.max_seen_priority.fill_(extras["replay_max_priority"])
+    replay = replay._replace(t=int(extras["replay_t"]))
+  return (state._replace(replay=replay), iteration, writer_state,
+          train_done)
+
+
+def main(argv: Optional[Sequence[str]] = None):
+  """Runs the CLI; returns the final engine state."""
   args = _parser().parse_args(argv)
-  if args.checkpoint_path:
-    raise NotImplementedError("checkpoint/resume is not ported yet.")
   if args.mesh_devices:
     raise NotImplementedError("--mesh_devices is not ported yet.")
   engine = build_engine(
@@ -187,7 +248,43 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
       resize_method=args.resize_method, device=args.device)
   writer = CsvWriter(args.results_csv_path) if args.results_csv_path \
       else NullWriter()
+  checkpoint = (TorchCheckpoint(args.checkpoint_path)
+                if args.checkpoint_path else NullCheckpoint())
+
+  def fence() -> None:
+    """Waits for the card, so that the budget clock reads work done, not
+    work queued (the superstep's own read-back does not wait for the learn
+    launches after it)."""
+    if engine.device.type == "cuda":
+      torch.cuda.synchronize(engine.device)
+
   state = engine.init(args.seed)
+  fence()
+  t_start = time.monotonic()  # the budget clock
+  iteration = 0
+  train_done = 0  # supersteps already finished inside `iteration`'s train
+
+  if checkpoint.can_be_restored():
+    logging.info("Restoring checkpoint.")
+    state, iteration, writer_state, train_done = restore_checkpoint(
+        checkpoint, state, args.checkpoint_replay)
+    writer.set_state(writer_state)
+    logging.info("Restored at iteration=%d train_done=%d.", iteration,
+                 train_done)
+
+  def over_budget() -> bool:
+    return bool(args.max_run_seconds) and \
+        time.monotonic() - t_start > args.max_run_seconds
+
+  last_save = [time.monotonic()]
+
+  def do_save(st, it, td):
+    t = time.monotonic()
+    save_checkpoint(checkpoint, st, it, writer.get_state(), td,
+                    args.checkpoint_replay)
+    last_save[0] = time.monotonic()
+    logging.info("Checkpoint saved (iteration=%d, train_done=%d) in %.1fs.",
+                 it, td, last_save[0] - t)
 
   b = engine.config.num_envs
   train_supersteps = max(1, args.num_train_frames // (4 * b))
@@ -198,21 +295,65 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
   eval_envs = min(eval_envs, b)
   eval_supersteps = max(1, args.num_eval_frames // (4 * eval_envs))
 
-  for iteration in range(args.num_iterations + 1):
-    # --- train phase (iteration 0 is eval-only).
+  run_iterations = 0
+  while iteration <= args.num_iterations:
+    if args.iterations_per_run and run_iterations >= args.iterations_per_run:
+      logging.info("iterations_per_run reached; exiting for resume.")
+      break
+    if over_budget():
+      logging.info("max_run_seconds reached; exiting for resume.")
+      break
+    run_iterations += 1
+    # --- train phase (iteration 0 is eval-only), in chunks with a fence
+    # after each, where the budget is checked and mid-train saves happen.
     logging.info("Training iteration %d.", iteration)
     n = 0 if iteration == 0 else train_supersteps
-    state = engine.reset_telemetry(state)
+    done = min(train_done, n)
+    train_done = 0
+    if done == 0:
+      # A mid-iteration resume keeps the restored telemetry: its phase
+      # began in an earlier process.
+      state = engine.reset_telemetry(state)
+    elif done < n:
+      logging.info("Resuming train phase at superstep %d/%d.", done, n)
     rate = StepRateTracker()
     rate.update(0)
     frames_before = state.env_frames
-    state = engine.run(state, n)
+    first_chunk_saved = False
+    aborted = False
+    while done < n:
+      k = min(TRAIN_CHUNK, n - done)
+      state = engine.run(state, k)
+      done += k
+      fence()
+      if done < n and over_budget():
+        logging.info("max_run_seconds hit mid-train; saving and exiting.")
+        do_save(state, iteration, done)
+        aborted = True
+        break
+      # The first completed chunk of each train phase is saved at once, so
+      # that a resumed leg banks progress before its first interval; later
+      # ones every save_interval_seconds.
+      if done < n and args.save_interval_seconds and (
+          not first_chunk_saved
+          or time.monotonic() - last_save[0] > args.save_interval_seconds):
+        do_save(state, iteration, done)
+        first_chunk_saved = True
+    if aborted:
+      break
+    if n and over_budget():
+      # Train finished with no budget left for eval: save with
+      # train_done = n, so that the next process goes straight to eval.
+      logging.info("max_run_seconds hit post-train; saving and exiting.")
+      do_save(state, iteration, n)
+      break
     train_m = engine.metrics(state)
     rate.update(train_m.env_frames - frames_before)
     train_rate = rate.get()["step_rate"] if n else float("nan")
 
     # --- eval phase: the frame budget, extended up to 3x until an episode
-    # completes, in chunks of at most 100 supersteps.
+    # completes, in chunks of at most 100 supersteps. Its seed is a
+    # function of (seed, iteration), so eval state is never saved.
     logging.info("Evaluation iteration %d.", iteration)
     estate = engine.eval_init(args.seed * 1_000_003 + iteration,
                               num_envs=eval_envs)
@@ -253,7 +394,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ]
     logging.info(", ".join(("%s: " + f) % (n_, v) for n_, v, f in log_output))
     writer.write(collections.OrderedDict((n_, v) for n_, v, _ in log_output))
+    iteration += 1
+    exiting = (args.iterations_per_run
+               and run_iterations >= args.iterations_per_run) \
+        or iteration > args.num_iterations or over_budget()
+    if exiting or iteration % args.checkpoint_period == 0:
+      do_save(state, iteration, 0)
   writer.close()
+  return state
 
 
 def cli(argv: Optional[Sequence[str]] = None) -> None:

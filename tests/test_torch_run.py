@@ -52,9 +52,7 @@ def test_cli_runs_the_iteration_protocol_on_cpu(tmp_path):
   assert int(rows[1]["eval_frames"]) > 0
 
 
-@pytest.mark.parametrize("flag", ["--checkpoint_path=/nonexistent/ck",
-                                  "--mesh_devices=2",
-                                  "--resize_method=pil"])
+@pytest.mark.parametrize("flag", ["--mesh_devices=2", "--resize_method=pil"])
 def test_cli_flags_not_ported_yet_raise(flag):
   with pytest.raises(NotImplementedError):
     ttrain.main(["--device=cpu", "--num_envs=2", "--replay_capacity=64",

@@ -8,7 +8,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      of each kernel (registers, static shared memory, spills; K4b's, K4c's
      and K2's dynamic shared memory beside it);
   2. hold each kernel against its plain PyTorch version at the main paths'
-     shapes, and time kernel, plain version, library call and bound;
+     shapes (K1 at W = 5 and W = 7), and time kernel, plain version,
+     library call and bound;
   3. drive the first main path — build_engine("dqn", "pong", num_envs=128,
      replay_capacity=1e6) in throughput mode (batch 1024) — through enough
      supersteps for >= 20 learn steps (a timed window of 600, which holds
@@ -21,6 +22,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      tree off their insert values, the IS weights of a fresh batch, the
      outputs and the launches per learning superstep (K3a three times: act,
      target and the double-Q selector);
+  4b. drive the rainbow path (RAINBOW_MAIN) — build_engine("rainbow", "pong",
+     num_envs=128, replay_capacity=1e6): batch 1024, n-step 3 (K1 windows of
+     7 rows) under prioritized replay, the noisy dueling C51 net, clip +
+     Adam — with 3's lowered min fill through 364 supersteps (300 timed, 40
+     fenced); check the loss, the priorities (in [0, 100]), the outputs
+     against the plain torso under the same noise, the launches per learning
+     superstep (K1 1, K2 1, K3a 3, K3b 1) and the replay-less checkpoint's
+     size;
   5. drive the iqn path — build_engine("iqn", "pong", num_envs=128,
      replay_capacity=1e6) at the agent's own min fill: 120 acting and
      replay-filling supersteps, on past the min fill through >= 20 learn
@@ -99,6 +108,8 @@ PATH_KERNELS = {
             "iqn_head_fwd_residuals", "iqn_head_bwd_w", "iqn_head_bwd_d"),
     "resume": ("gather_windows", "pooled_frame_to_84", "dqn_torso_fwd",
                "dqn_torso_fwd_residuals"),
+    "rainbow": ("gather_windows", "pooled_frame_to_84", "dqn_torso_fwd",
+                "dqn_torso_fwd_residuals"),
 }
 
 
@@ -209,34 +220,43 @@ def phase_kernels(dev):
     print("KERNEL_CHECK " + json.dumps(line), flush=True)
     return line
 
-  # K1: B = 1024 windows of W = 5 rows from 128 streams. Exact. Timing
-  # rotates through 8 index sets, 289 MB of rows from a 1.85 GB store; the
-  # indices are int64, as the replay's sample path hands them in.
-  b, w, s, r = 1024, 5, 128, 2048
+  # K1: B = 1024 windows of W rows from 128 streams: W = 5 (n-step 1 and a
+  # stack of 4: dqn, prioritized, iqn) and W = 7 (rainbow's n-step 3), where
+  # a window of 49,392 bytes is two pieces of a block's copy. Exact. Timing
+  # rotates through 8 index sets, 289 MB (W = 5) or 405 MB (W = 7) of rows
+  # from a 1.85 GB store; the indices are int64, as the replay's sample
+  # path hands them in.
+  b, s, r = 1024, 128, 2048
   frames = torch.randint(0, 256, (s, r, 84, 84), generator=gen, device=dev,
                          dtype=torch.uint8)
   flat = frames.view(s * r, 84 * 84)
-  sets = []
-  for _ in range(ROTATE):
-    stream = torch.randint(0, s, (b,), generator=gen, device=dev)
-    start = torch.randint(0, r - w + 1, (b,), generator=gen, device=dev)
-    rows = (stream[:, None] * r + start[:, None]
-            + torch.arange(w, device=dev)).reshape(-1)
-    sets.append((stream, start, rows))
-  for stream, start, _ in sets:
-    got = twg.gather_windows(frames, stream, start, w)
-    want = twg.gather_windows_plain(frames, stream, start, w)
-    if not torch.equal(got, want):
-      fail("K1 gather_windows differs from its plain version")
-  kernel = lambda st, sa, _: twg.gather_windows(frames, st, sa, w)
-  library = lambda _, __, rw: torch.index_select(flat, 0, rw)
-  results["gather_windows"] = report(
-      "gather_windows", f"B={b} W={w}", 0.0, "exact", time_ms(kernel, sets),
-      time_ms(lambda st, sa, _: twg.gather_windows_plain(frames, st, sa, w),
-              sets),
-      time_ms(library, sets), 2 * b * w * 84 * 84 + 8 * b, 0,
-      graph_ms=graph_ms(kernel, sets), library_graph_ms=graph_ms(library, sets))
-  del frames, flat, sets
+  for w, role in ((5, "dqn, prioritized, iqn"), (7, "rainbow")):
+    sets = []
+    for _ in range(ROTATE):
+      stream = torch.randint(0, s, (b,), generator=gen, device=dev)
+      start = torch.randint(0, r - w + 1, (b,), generator=gen, device=dev)
+      rows = (stream[:, None] * r + start[:, None]
+              + torch.arange(w, device=dev)).reshape(-1)
+      sets.append((stream, start, rows))
+    for stream, start, _ in sets:
+      got = twg.gather_windows(frames, stream, start, w)
+      want = twg.gather_windows_plain(frames, stream, start, w)
+      if not torch.equal(got, want):
+        fail(f"K1 gather_windows at W={w} differs from its plain version")
+    kernel = lambda st, sa, _: twg.gather_windows(frames, st, sa, w)
+    library = lambda _, __, rw: torch.index_select(flat, 0, rw)
+    line = report(
+        "gather_windows", f"B={b} W={w}", 0.0, "exact",
+        time_ms(kernel, sets),
+        time_ms(lambda st, sa, _: twg.gather_windows_plain(frames, st, sa, w),
+                sets),
+        time_ms(library, sets), 2 * b * w * 84 * 84 + 8 * b, 0,
+        graph_ms=graph_ms(kernel, sets),
+        library_graph_ms=graph_ms(library, sets), role=role)
+    if w == 5:
+      results["gather_windows"] = line
+    del sets
+  del frames, flat
 
   # K2 at B = 128 (train) and B = 4 (eval), 8 sets of env frame pairs each,
   # one penultimate frame of each set all zero. At B = 128 the 8 sets (206
@@ -866,6 +886,174 @@ def phase_per_path(dev):
   return counts
 
 
+def card() -> str:
+  """The card's name and power limit, as nvidia-smi gives them."""
+  smi = subprocess.run(
+      ["nvidia-smi", "--query-gpu=name,power.limit",
+       "--format=csv,noheader"], capture_output=True, text=True, check=True)
+  return smi.stdout.strip().splitlines()[0]
+
+
+def phase_rainbow_path(dev):
+  """The port's rainbow/pong trainer at the CLI defaults (128 envs, replay
+  1e6, throughput batch 1024, n-step 3 under prioritized replay, noisy
+  dueling C51 net, clip + Adam) through the user's entry points, with MAIN's
+  lowered min fill; checks the loss, the priorities, the outputs and the
+  launches per learning superstep, and returns the launch counts."""
+  import shutil
+  from dqn_zoo_torch import kernels
+  from dqn_zoo_torch.agents.base import ClipByGlobalNorm
+  from dqn_zoo_torch.engine.superstep import leaves
+  from dqn_zoo_torch.nets import atari, core, torso_cuda
+  from dqn_zoo_torch.replay import device_replay as dr
+  from dqn_zoo_torch.run import checkpoint as ckpt
+  from dqn_zoo_torch.run.train import build_engine, save_checkpoint
+
+  engine = build_engine("rainbow", "pong", num_envs=128,
+                        replay_capacity=1_000_000,
+                        min_replay_capacity_fraction=0.002, device="cuda")
+  cfg, rcfg, spec = engine.config, engine.rcfg, engine.spec
+  if (cfg.batch_size, cfg.learn_every, cfg.updates_per_learn) != (1024, 1, 1) \
+      or (rcfg.n_step, rcfg.window, rcfg.priority_exponent,
+          rcfg.uniform_sample_probability, rcfg.normalize_weights_chunk) != \
+      (3, 7, 0.5, 1e-3, 32) or (spec.num_atoms, spec.vmax) != (51, 10.0) \
+      or not isinstance(engine.optimizer, ClipByGlobalNorm) \
+      or not math.isclose(spec.learning_rate, 6.25e-5 * 32 ** 0.5):
+    fail(f"unexpected rainbow schedule {cfg}, replay {rcfg} or spec {spec}")
+  state = engine.init(seed=7)
+  torch.cuda.synchronize()
+  n_params = sum(p.numel() for p in leaves(state.online_params))
+  print(f"RAINBOW_MAIN engine built: replay {cfg.num_envs}x"
+        f"{cfg.slots_per_stream} rows, {n_params} parameters", flush=True)
+
+  kernels.reset_counts()
+  # The learn gate opens at ~2000 active rows; a row waits n = 3 steps for
+  # its return, so learning starts a few supersteps after MAIN's ~18.
+  warm = 24
+  state = engine.run(state, warm)
+  torch.cuda.synchronize()
+  if state.telemetry.learn_steps == 0:
+    fail(f"rainbow took no learn step in {warm} supersteps")
+  timed = 300
+  steps_before = state.telemetry.learn_steps
+  counts_before = kernels.counts()
+  resets = []
+  t0 = time.perf_counter()
+  for _ in range(timed):
+    resets.append(state.env.needs_reset.any())
+    state = engine.superstep(state)
+  torch.cuda.synchronize()
+  t_run = time.perf_counter() - t0
+  counts_after = kernels.counts()
+  if state.telemetry.learn_steps - steps_before != timed:
+    fail(f"{state.telemetry.learn_steps - steps_before} rainbow learn steps "
+         f"in {timed} timed supersteps")
+  per_learning_superstep = {
+      k: (counts_after[k] - counts_before[k]) / timed for k in counts_after
+      if k in PATH_KERNELS["rainbow"]}
+  # act, the double-Q selector and the target net on K3a; the online net
+  # on K3b; one window gather of W = 7 rows per sample.
+  want = {"gather_windows": 1, "pooled_frame_to_84": 1, "dqn_torso_fwd": 3,
+          "dqn_torso_fwd_residuals": 1}
+  if per_learning_superstep != want:
+    fail(f"launches per rainbow learning superstep "
+         f"{per_learning_superstep}, expected {want}")
+  split = {}
+  fenced = 40
+  state = engine.run(state, fenced, timings=split)
+  torch.cuda.synchronize()
+  counts = kernels.counts()
+
+  m = engine.metrics(state)
+  rep = state.replay
+  if m.learn_steps < 20 or not math.isfinite(m.last_loss):
+    fail(f"rainbow: {m.learn_steps} learn steps, loss {m.last_loss}")
+  for name in PATH_KERNELS["rainbow"]:
+    if counts[name] == 0:
+      fail(f"kernel {name} was not launched on the rainbow main path")
+  # Priorities are clip(|loss|, 0, 100): the leaves written (priority^0.5)
+  # lie in [0, 10] and the max seen is finite, at most 100.
+  max_seen = float(rep.max_seen_priority)
+  leaf_max = float(rep.value_tree[0].max())
+  leaf_min = float(rep.value_tree[0].min())
+  if not (math.isfinite(max_seen) and 0 < max_seen <= 100.0) or \
+      max_seen == 1.0 or not 0.0 <= leaf_min <= leaf_max <= 10.0:
+    fail(f"rainbow priorities out of range: max seen {max_seen}, leaves "
+         f"{leaf_min} .. {leaf_max}")
+  # The priorities of a fresh batch (through the kernels, after the counts
+  # were read) lie in [0, 100].
+  draws = engine.draw(state.generator)
+  batch, _, weights = dr.replay_sample(
+      rcfg, rep, draws.sample_u[0],
+      engine.importance_sampling_exponent(rep.t * cfg.num_envs))
+  with torch.no_grad():
+    out = spec.loss(spec, engine.network, state.online_params,
+                    state.target_params, batch, weights,
+                    *(type(n)(*(x[0] for x in n)) for n in draws.loss_noise))
+  prio = out.priorities
+  if not (bool(torch.isfinite(prio).all()) and float(prio.min()) >= 0.0
+          and float(prio.max()) <= 100.0 and math.isfinite(float(out.loss))):
+    fail(f"rainbow priorities of a fresh batch out of [0, 100]: "
+         f"{float(prio.min())} .. {float(prio.max())}")
+
+  # Outputs: the current observations through the kernels, against the
+  # plain torso under the same noise.
+  a = engine.game.num_actions
+  with torch.no_grad():
+    obs = state.stack.frames
+    noise = engine.network.draw_noise(state.generator, dev)
+    got = engine.network.apply(state.online_params, obs, noise)
+    t = state.online_params["torso"]
+    plain_torso = torso_cuda.torso_plain(
+        t["conv1"]["w"], t["conv1"]["b"], t["conv2"]["w"], t["conv2"]["b"],
+        t["conv3"]["w"], t["conv3"]["b"], obs)
+    p = state.online_params
+    adv = core.noisy_linear(torch.relu(core.noisy_linear(
+        plain_torso, p["advantage"]["hidden"], *noise[:2])),
+        p["advantage"]["out"], *noise[2:4]).reshape(-1, a, spec.num_atoms)
+    val = core.noisy_linear(torch.relu(core.noisy_linear(
+        plain_torso, p["value"]["hidden"], *noise[4:6])),
+        p["value"]["out"], *noise[6:]).reshape(-1, 1, spec.num_atoms)
+    plain_logits = val + adv - adv.mean(dim=1, keepdim=True)
+    plain_q = (torch.softmax(plain_logits, -1)
+               * engine.network.support(dev)).sum(-1)
+  if tuple(got.q_logits.shape) != (cfg.num_envs, a, spec.num_atoms) or \
+      tuple(got.q_values.shape) != (cfg.num_envs, a) or \
+      not bool(torch.isfinite(got.q_logits).all()) or \
+      float(got.q_values.abs().max()) > spec.vmax:
+    fail(f"bad rainbow outputs {tuple(got.q_logits.shape)}")
+  torch.testing.assert_close(got.q_logits, plain_logits, rtol=1e-4, atol=1e-5)
+  torch.testing.assert_close(got.q_values, plain_q, rtol=1e-4, atol=1e-5)
+
+  # The replay-less checkpoint a chain of legs carries between calls.
+  root = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".ckpt",
+                      "chip_smoke_rainbow")
+  shutil.rmtree(root, ignore_errors=True)
+  lite = ckpt.TorchCheckpoint(root)
+  save_checkpoint(lite, state, 1, {}, 0, checkpoint_replay=False)
+  replayless_bytes = os.path.getsize(lite.state_path())
+  shutil.rmtree(root, ignore_errors=True)
+
+  summary = dict(
+      supersteps=warm + timed + fenced, learn_steps=m.learn_steps,
+      last_loss=m.last_loss, replay_size=m.replay_size,
+      env_frames=m.env_frames, timed_supersteps=timed,
+      training_env_steps_per_s=timed * cfg.num_envs / t_run,
+      ms_per_learning_superstep=1e3 * t_run / timed,
+      reset_supersteps_in_timed=int(torch.stack(resets).sum()),
+      split_ms_per_superstep={k: 1e3 * v / fenced for k, v in split.items()},
+      launches_per_learning_superstep=per_learning_superstep,
+      parameters=n_params, max_seen_priority=max_seen,
+      value_leaf_range=[leaf_min, leaf_max],
+      fresh_batch_priority_range=[float(prio.min()), float(prio.max())],
+      fresh_batch_loss=float(out.loss), train_launches=counts,
+      q_logits_max_abs_err=float((got.q_logits - plain_logits).abs().max()),
+      replayless_checkpoint_bytes=replayless_bytes,
+      peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=card())
+  print("RAINBOW_MAIN " + json.dumps(summary), flush=True)
+  return counts
+
+
 def phase_iqn_path(dev):
   """The port's iqn/pong trainer at full width (latent 64, 64 taus of each
   kind, D = 3136, H = 512, A = 6, batch 1024) through the user's entry
@@ -1316,6 +1504,7 @@ def main() -> int:
   path_counts = {}
   for path, phase in (("dqn", phase_main_path),
                       ("prioritized", phase_per_path),
+                      ("rainbow", phase_rainbow_path),
                       ("iqn", phase_iqn_path),
                       ("resume", phase_resume_path)):
     torch.cuda.empty_cache()
@@ -1339,10 +1528,7 @@ def main() -> int:
       fail(f"kernel {name} was launched on no main path")
     entries.append(entry)
   print(json.dumps({"kernels": entries}))
-  smi = subprocess.run(
-      ["nvidia-smi", "--query-gpu=name,power.limit",
-       "--format=csv,noheader"], capture_output=True, text=True, check=True)
-  print(smi.stdout.strip().splitlines()[0])
+  print(card())
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

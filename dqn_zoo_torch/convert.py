@@ -34,7 +34,9 @@ def tensor(x, device) -> torch.Tensor:
 
 def params_from_jax(tree, device, requires_grad: bool = False):
   """{"torso": {"conv1": {"w", "b"}, ...}, "head": {...}} (and IQN's
-  "tau_embed": {"w", "b"}) of numpy arrays → the same nesting of tensors."""
+  "tau_embed": {"w", "b"}, rainbow's noisy {"mu", "sigma"} layers) of numpy
+  arrays → the same nesting of tensors; an empty dict (a JAX ReLU layer's)
+  stays empty and holds no leaf."""
   if isinstance(tree, dict):
     return {k: params_from_jax(v, device, requires_grad)
             for k, v in tree.items()}
@@ -42,7 +44,9 @@ def params_from_jax(tree, device, requires_grad: bool = False):
 
 
 def _find_moments(opt_state) -> Any:
-  """The state of an optax chain that holds `mu` and `nu` parameter trees."""
+  """The state of an optax chain that holds `mu` and `nu` parameter trees
+  (inside `optax.chain(clip_by_global_norm, adam)`'s tuple, past the clip's
+  empty state)."""
   if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
     return opt_state
   if isinstance(opt_state, (tuple, list)):

@@ -16,7 +16,10 @@ B replay rows and runs gated SGD, in the reference's order:
 An agent whose actor takes τ samples (IQN: the fused head, kernel K4a) gets
 them from the draws too: `act_taus`, U[0, 1) of shape (B, τ samples). So
 does a loss that takes τ samples (IQN: K4a forward, K4b and K4c backward):
-`loss_taus`, three sets per update.
+`loss_taus`, three sets per update. An agent whose network has noisy layers
+(rainbow) gets their noise the same way: `act_noise`, one set per act, and
+`loss_noise`, three sets per update, each drawn by the network's
+`draw_noise`.
 
 The JAX engine scans supersteps inside one compiled program; here `run` is a
 Python loop over `superstep`, which reads two numbers back from the device
@@ -166,6 +169,13 @@ class SuperstepDraws(NamedTuple):
   # (tau_tm1, tau_sel, tau_t), each (updates, batch, n) U[0,1), only for an
   # agent whose loss takes τ and only when learning.
   loss_taus: Optional[tuple] = None
+  # One noise set of the network's noisy layers, only for an agent whose act
+  # takes noise.
+  act_noise: Any = None
+  # (noise_tm1, noise_sel, noise_t), each a noise set whose tensors have a
+  # leading (updates,) axis, only for an agent whose loss takes noise and
+  # only when learning.
+  loss_noise: Optional[tuple] = None
 
 
 def leaves(tree) -> List[torch.Tensor]:
@@ -262,11 +272,13 @@ class Engine:
     env = env or self.env
     u, a = epsilon_greedy_draws(env.batch_size, self.game.num_actions, gen,
                                 self.device)
-    act_taus = None
+    act_taus = act_noise = None
     if self.spec.act_takes_taus:
       act_taus = torch.rand((env.batch_size, self.spec.tau_samples_policy),
                             generator=gen, device=self.device)
-    sample_u = loss_taus = None
+    if self.spec.act_takes_noise:
+      act_noise = self.network.draw_noise(gen, self.device)
+    sample_u = loss_taus = loss_noise = None
     if learn:
       shape = (self.config.updates_per_learn, self.config.batch_size)
       u_shape = (shape if self.rcfg.priority_exponent == 0
@@ -278,27 +290,36 @@ class Engine:
             torch.rand(shape + (n,), generator=gen, device=self.device)
             for n in (s.tau_samples_s_tm1, s.tau_samples_policy,
                       s.tau_samples_s_t))
+      if self.spec.loss_takes_noise:
+        # One draw of (updates, 3) sets, split into the three.
+        both = self.network.draw_noise(gen, self.device, (shape[0], 3))
+        loss_noise = tuple(type(both)(*(x[:, j] for x in both))
+                           for j in range(3))
     return SuperstepDraws(u, a, sample_u, env.draws(gen), act_taus,
-                          loss_taus)
+                          loss_taus, act_noise, loss_noise)
 
   def _act(self, params, obs, epsilon, draws: SuperstepDraws):
     args = (self.spec, self.network, params, obs, epsilon, draws.explore_u,
             draws.random_action)
     if self.spec.act_takes_taus:
       args += (draws.act_taus,)
+    if self.spec.act_takes_noise:
+      args += (draws.act_noise,)
     return self.spec.act(*args)
 
   # --- learning --------------------------------------------------------------
 
   def _sgd_update(self, replay, target, online, opt_state, sample_u,
-                  loss_taus=()):
+                  loss_args=()):
     """One SGD step; with prioritized replay it then writes the sampled
-    rows' new priorities, so the next step samples the updated tree."""
+    rows' new priorities, so the next step samples the updated tree.
+    `loss_args` are the update's τ sets and noise sets, if the loss takes
+    any."""
     beta = self.importance_sampling_exponent(replay.t * self.config.num_envs)
     batch, sampled, weights = dr.replay_sample(self.rcfg, replay, sample_u,
                                                beta)
     out = self.spec.loss(self.spec, self.network, online, target, batch,
-                         weights, *loss_taus)
+                         weights, *loss_args)
     params = leaves(online)
     grads = torch.autograd.grad(out.loss, params)
     self.optimizer.step(params, list(grads), opt_state)
@@ -360,9 +381,10 @@ class Engine:
     last_loss, nupd = tel.last_loss, 0
     if size >= min_fill and state.superstep % cfg.learn_every == 0:
       for u in range(cfg.updates_per_learn):
-        taus = tuple(t[u] for t in draws.loss_taus or ())
+        args = tuple(t[u] for t in draws.loss_taus or ()) + tuple(
+            type(n)(*(x[u] for x in n)) for n in draws.loss_noise or ())
         last_loss = self._sgd_update(replay, state.target_params, online,
-                                     opt_state, draws.sample_u[u], taus)
+                                     opt_state, draws.sample_u[u], args)
       nupd = cfg.updates_per_learn
 
     # 7. target swap on frame-count boundary crossings.

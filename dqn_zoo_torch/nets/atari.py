@@ -1,11 +1,13 @@
-"""The DQN, double-DQN and IQN Atari networks (port of
-dqn_zoo_tpu/nets/atari.py:58-150 and :256-316).
+"""The DQN, double-DQN, IQN and rainbow Atari networks (port of
+dqn_zoo_tpu/nets/atari.py:58-150, :205-253 and :256-316).
 
 Parameters are a dict of tensors shaped like the JAX pytree:
   {"torso": {"conv1"|"conv2"|"conv3": {"w": HWIO, "b"}},
    "head": {"hidden": {"w": (3136, 512), "b"}, "out": {"w": (512, A), "b"}}}
 and, for IQN, also "tau_embed": {"w": (latent, 3136), "b"}. The double-DQN
-network's "out" has a (1,) bias shared by all actions.
+network's "out" has a (1,) bias shared by all actions. The rainbow network
+has "torso", "advantage" and "value", each stream {"hidden", "out"} of noisy
+layers ({"mu": {"w"[, "b"]}, "sigma": {"w", "b"}}, nets/core.py).
 The torso flattens in (y, x, c) order as JAX flattens NHWC, so
 `head.hidden.w` carries across from JAX without a row permutation.
 """
@@ -13,7 +15,7 @@ The torso flattens in (y, x, c) order as JAX flattens NHWC, so
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -22,6 +24,11 @@ from dqn_zoo_torch.nets import core, iqn_head, torso_cuda
 
 class QNetworkOutputs(NamedTuple):
   q_values: torch.Tensor
+
+
+class C51NetworkOutputs(NamedTuple):
+  q_values: torch.Tensor  # (B, A): expected return under the support, detached
+  q_logits: torch.Tensor  # (B, A, atoms)
 
 
 def dqn_torso(params, x: torch.Tensor) -> torch.Tensor:
@@ -134,3 +141,98 @@ class IqnAtariNetwork:
 
 def iqn_atari_network(num_actions: int, latent_dim: int) -> IqnAtariNetwork:
   return IqnAtariNetwork(num_actions, latent_dim)
+
+
+class RainbowNoise(NamedTuple):
+  """The noise of one rainbow apply: for each of the four noisy layers its
+  input-side vector (fan_in,) and output-side vector (outputs,), each
+  sign(e)·√|e| of a truncated normal (core.noise_draw), broadcast over the
+  batch. A leading axis, where the engine adds one, indexes draws."""
+  advantage_hidden_in: torch.Tensor  # (3136,)
+  advantage_hidden_out: torch.Tensor  # (512,)
+  advantage_out_in: torch.Tensor  # (512,)
+  advantage_out_out: torch.Tensor  # (A * atoms,)
+  value_hidden_in: torch.Tensor  # (3136,)
+  value_hidden_out: torch.Tensor  # (512,)
+  value_out_in: torch.Tensor  # (512,)
+  value_out_out: torch.Tensor  # (atoms,)
+
+
+class RainbowAtariNetwork:
+  """Dueling noisy C51 net: `init(generator, device)`,
+  `apply(params, x, noise)` and `draw_noise(generator, device)`.
+
+  advantage stream: noisy 512 → ReLU → noisy A·atoms, no bias;
+  value stream: noisy 512 → ReLU → noisy atoms, no bias;
+  q_logits = value + advantage − mean_a(advantage), a softmax over atoms,
+  q_values = Σ softmax · support. The torso is kernel K3 on CUDA; the
+  noisy layers are plain f32 products.
+  """
+
+  def __init__(self, num_actions: int, support: torch.Tensor,
+               noisy_weight_init: float):
+    if support.dim() != 1:
+      raise ValueError(f"support must be 1-D; got {tuple(support.shape)}.")
+    self.num_actions = num_actions
+    self.num_atoms = support.shape[0]
+    self.noisy_weight_init = noisy_weight_init
+    self._support = support
+    self._support_on: Dict[torch.device, torch.Tensor] = {}
+
+  def support(self, device) -> torch.Tensor:
+    """The support on `device`, copied there once."""
+    device = torch.device(device)
+    if device not in self._support_on:
+      self._support_on[device] = self._support.to(device)
+    return self._support_on[device]
+
+  def init(self, gen: torch.Generator, device):
+    nl = lambda fan_in, n, bias: core.noisy_linear_init(
+        gen, fan_in, n, self.noisy_weight_init, bias, device)
+    a, n = self.num_actions, self.num_atoms
+    return {
+        "torso": {
+            "conv1": core.conv2d_init(gen, 8, 8, 4, 32, device),
+            "conv2": core.conv2d_init(gen, 4, 4, 32, 64, device),
+            "conv3": core.conv2d_init(gen, 3, 3, 64, 64, device),
+        },
+        "advantage": {"hidden": nl(3136, 512, True),
+                      "out": nl(512, a * n, False)},
+        "value": {"hidden": nl(3136, 512, True), "out": nl(512, n, False)},
+    }
+
+  def noise_sizes(self):
+    """The lengths of RainbowNoise's fields, in field order."""
+    a, n = self.num_actions, self.num_atoms
+    return [3136, 512, 512, a * n, 3136, 512, 512, n]
+
+  def draw_noise(self, gen: torch.Generator, device,
+                 lead=()) -> RainbowNoise:
+    """One noise set (or a `lead`-shaped array of them) in one draw."""
+    sizes = self.noise_sizes()
+    e = core.noise_draw(gen, tuple(lead) + (sum(sizes),), device)
+    return RainbowNoise(*torch.split(e, sizes, dim=-1))
+
+  @staticmethod
+  def _stream(p, h, eps_hidden_in, eps_hidden_out, eps_out_in, eps_out_out):
+    h = core.relu(core.noisy_linear(h, p["hidden"], eps_hidden_in,
+                                    eps_hidden_out))
+    return core.noisy_linear(h, p["out"], eps_out_in, eps_out_out)
+
+  def apply(self, params, x: torch.Tensor,
+            noise: RainbowNoise) -> C51NetworkOutputs:
+    embed = dqn_torso(params["torso"], x)
+    advantage = self._stream(params["advantage"], embed, *noise[:4])
+    advantage = advantage.reshape(-1, self.num_actions, self.num_atoms)
+    value = self._stream(params["value"], embed, *noise[4:])
+    value = value.reshape(-1, 1, self.num_atoms)
+    q_logits = value + advantage - torch.mean(advantage, dim=-2,
+                                              keepdim=True)
+    q_dist = torch.softmax(q_logits.detach(), dim=-1)
+    q_values = torch.sum(q_dist * self.support(x.device)[None, None, :], dim=2)
+    return C51NetworkOutputs(q_values=q_values, q_logits=q_logits)
+
+
+def rainbow_atari_network(num_actions: int, support: torch.Tensor,
+                          noisy_weight_init: float) -> RainbowAtariNetwork:
+  return RainbowAtariNetwork(num_actions, support, noisy_weight_init)

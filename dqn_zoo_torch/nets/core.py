@@ -3,6 +3,9 @@
 Parameters keep the JAX package's layout so that a checkpoint's pytree maps
 across leaf for leaf (convert.py): conv weights HWIO (kh, kw, in, out),
 dense weights (in, out). Activations are NHWC at every public boundary.
+
+A noisy layer's noise is an argument, drawn by the caller (`noise_draw`,
+from a `torch.Generator`) or handed in from values a test computed with JAX.
 """
 
 from __future__ import annotations
@@ -71,3 +74,49 @@ def relu(x: torch.Tensor) -> torch.Tensor:
 def flatten(x: torch.Tensor) -> torch.Tensor:
   """All but the batch axis, in memory order (y, x, c for NHWC)."""
   return x.reshape(x.shape[0], -1)
+
+
+def noisy_linear_init(gen, fan_in: int, num_outputs: int,
+                      weight_init_stddev: float, with_bias: bool,
+                      device) -> Params:
+  """A factorised-Gaussian NoisyNet layer (nets/core.py:183-228 of the JAX
+  package): {"mu": {"w"[, "b"]}, "sigma": {"w", "b"}}. μ takes the legacy
+  uniform init; σ starts at weight_init_stddev / √fan_in. `mu.b` exists
+  only with a bias, `sigma.b` always."""
+  sigma0 = weight_init_stddev / math.sqrt(fan_in)
+  mu = {"w": legacy_uniform_init(gen, (fan_in, num_outputs), fan_in, device)}
+  if with_bias:
+    mu["b"] = legacy_uniform_init(gen, (num_outputs,), fan_in, device)
+  sigma = {"w": torch.full((fan_in, num_outputs), sigma0, device=device),
+           "b": torch.full((num_outputs,), sigma0, device=device)}
+  return {"mu": mu, "sigma": sigma}
+
+
+def noisy_linear(x: torch.Tensor, p: Params, eps_in: torch.Tensor,
+                 eps_out: torch.Tensor) -> torch.Tensor:
+  """x (B, fan_in) → (B, n) in the JAX package's order: μ = x @ μ.w (+ μ.b),
+  σ = (ε_in · x) @ σ.w + σ.b, then μ + σ · ε_out. ε_in (fan_in,) and ε_out
+  (n,) are one draw broadcast over the batch. μ and σ stay two products:
+  folding them into one weight would round the sums differently."""
+  mu = x @ p["mu"]["w"]
+  if "b" in p["mu"]:
+    mu = mu + p["mu"]["b"]
+  sigma = (eps_in * x) @ p["sigma"]["w"] + p["sigma"]["b"]
+  return mu + sigma * eps_out
+
+
+def noise_sqrt(e: torch.Tensor) -> torch.Tensor:
+  """sign(e)·√|e|, the NoisyNet noise transform. The root is taken in f64
+  and rounded once to f32, so it is correctly rounded, as XLA's f32 root
+  is; torch's vectorised f32 root on the CPU is not (one ulp off in about
+  one value of 140)."""
+  return torch.sign(e) * torch.sqrt(torch.abs(e).double()).to(e.dtype)
+
+
+def noise_draw(gen: torch.Generator, shape: Sequence[int],
+               device) -> torch.Tensor:
+  """`noise_sqrt` of a standard normal truncated to ±2 (not rescaled: the
+  distribution of jax.random.truncated_normal(-2, 2))."""
+  e = torch.empty(tuple(shape), device=device)
+  torch.nn.init.trunc_normal_(e, 0.0, 1.0, -2.0, 2.0, generator=gen)
+  return noise_sqrt(e)

@@ -1,5 +1,5 @@
 """Value-learning losses (port of dqn_zoo_tpu/ops/value_learning.py:26-66,
-:115-145 and the batch forms of :148-155 for the ported agents)."""
+:68-145 and the batch forms of :148-155 for the ported agents)."""
 
 from __future__ import annotations
 
@@ -60,6 +60,54 @@ def batch_double_q_learning(q_tm1, a_tm1, r_t, discount_t, q_t_value,
   target = r_t + discount_t * torch.gather(q_t_value, 1, a_t[:, None])[:, 0]
   picked = torch.gather(q_tm1, 1, a_tm1.long()[:, None])[:, 0]
   return target.detach() - picked
+
+
+def categorical_l2_project(z_p, probs, z_q):
+  """Projects the distributions (z_p, probs) onto the support z_q (the
+  C51 Cramér/L2 projection). z_p and probs (..., n), z_q (m,) sorted →
+  (..., m); the intermediate is (..., m, n). z_p is clipped to [z_q[0],
+  z_q[-1]] and the JAX package's d_pos/d_neg form is kept, so atoms beyond
+  the support and terminal rows (all of z_p at one point) land as there."""
+  gaps = z_q[1:] - z_q[:-1]
+  one = torch.ones((1,), dtype=z_q.dtype, device=z_q.device)
+  d_pos = torch.cat([gaps, one])[:, None]
+  d_neg = torch.cat([one, gaps])[:, None]
+  z_p = torch.clamp(z_p, z_q[0], z_q[-1])[..., None, :]  # (..., 1, n)
+  delta_qp = z_p - z_q[:, None]  # (..., m, n)
+  d_sign = (delta_qp >= 0.0).to(probs.dtype)
+  delta_hat = (d_sign * delta_qp / d_pos
+               - (1.0 - d_sign) * delta_qp / d_neg)
+  return torch.sum(torch.clamp(1.0 - delta_hat, 0.0, 1.0)
+                   * probs[..., None, :], dim=-1)
+
+
+def _pick(x, a):
+  """x (B, A, n), a (B,) → x[b, a[b]] (B, n)."""
+  return torch.gather(x, 1, a.long()[:, None, None].expand(
+      -1, 1, x.shape[2]))[:, 0]
+
+
+def _categorical_loss(q_atoms_tm1, q_logits_tm1, a_tm1, r_t, discount_t,
+                      q_atoms_t, q_t_probs, a_t):
+  """Per row: the cross-entropy of the online logits at a_tm1 to the
+  projected target distribution at a_t (detached)."""
+  target_z = r_t[:, None] + discount_t[:, None] * q_atoms_t[None, :]
+  target = categorical_l2_project(target_z, _pick(q_t_probs, a_t),
+                                  q_atoms_tm1)
+  log_p = torch.log_softmax(_pick(q_logits_tm1, a_tm1), dim=-1)
+  return -torch.sum(target.detach() * log_p, dim=-1)
+
+
+def batch_categorical_double_q_learning(q_atoms_tm1, q_logits_tm1, a_tm1, r_t,
+                                        discount_t, q_atoms_t, q_logits_t,
+                                        q_t_selector):
+  """C51 loss with double-Q action selection, over a leading batch axis
+  (the reference's vmap with shared supports): q_logits_* (B, A, atoms),
+  q_t_selector (B, A), a_tm1, r_t, discount_t (B,) → (B,)."""
+  a_t = torch.argmax(q_t_selector, dim=-1)
+  q_t_probs = torch.softmax(q_logits_t, dim=-1)
+  return _categorical_loss(q_atoms_tm1, q_logits_tm1, a_tm1, r_t, discount_t,
+                           q_atoms_t, q_t_probs, a_t)
 
 
 def quantile_regression_loss(dist_src, tau_src, dist_target,

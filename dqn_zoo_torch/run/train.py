@@ -6,7 +6,7 @@ The reference's run protocol: iterations of (train phase, eval phase),
 iteration 0 eval-only, one CSV row and one log line per iteration with the
 reference's 13 fields plus `eval_frames`. Flag names are the JAX CLI's;
 flags of parts not ported yet (the PIL resize, multi-device) raise when
-set. Agents: dqn, double_q, prioritized and iqn (each also has
+set. Agents: dqn, double_q, prioritized, iqn and rainbow (each also has
 its runner, `python -m dqn_zoo_torch.run.agents.<agent>`). Games: pong and
 catch. Runs on CUDA unless --device=cpu.
 
@@ -46,10 +46,10 @@ _SPEC_FLOATS = (
     "eval_exploration_epsilon", "grad_error_bound", "max_global_grad_norm",
     "priority_exponent", "importance_sampling_exponent_begin_value",
     "importance_sampling_exponent_end_value", "uniform_sample_probability",
-    "huber_param")
+    "huber_param", "vmax", "noisy_weight_init")
 _SPEC_INTS = ("target_network_update_period", "learn_period", "n_steps",
               "tau_latent_dim", "tau_samples_policy", "tau_samples_s_tm1",
-              "tau_samples_s_t")
+              "tau_samples_s_t", "num_atoms")
 # Supersteps between the train phase's fences (budget checks, saves).
 TRAIN_CHUNK = 100
 # Flag name -> AgentSpec field, where they differ.

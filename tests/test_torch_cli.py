@@ -23,6 +23,9 @@ _CASES = [
     dict(priority_exponent=0.5, importance_sampling_exponent_begin_value=0.5,
          importance_sampling_exponent_end_value=0.9,
          uniform_sample_probability=0.01, normalize_weights=False),
+    # A reference rainbow command line: the three rainbow flags.
+    dict(vmax=5.0, num_atoms=21, noisy_weight_init=0.5, n_steps=3,
+         max_global_grad_norm=5.0),
 ]
 
 
@@ -37,13 +40,15 @@ def _jax_overrides(values: dict) -> dict:
 
 
 @pytest.mark.parametrize("values", _CASES,
-                         ids=["iqn", "dqn_family", "unset", "prioritized"])
+                         ids=["iqn", "dqn_family", "unset", "prioritized",
+                              "rainbow"])
 def test_spec_overrides_match_the_jax_cli(values):
   argv = ["--agent=iqn"] + _argv(values)
   ours = ttrain._spec_overrides(ttrain._parser().parse_args(argv))
   assert ours == _jax_overrides(values)
   for name in ("huber_param", "tau_latent_dim", "tau_samples_policy",
-               "tau_samples_s_tm1", "tau_samples_s_t", "compute_dtype"):
+               "tau_samples_s_tm1", "tau_samples_s_t", "compute_dtype",
+               "vmax", "num_atoms", "noisy_weight_init"):
     assert (name in ours) == (name in values), name
 
 
@@ -79,3 +84,19 @@ def test_unsupported_values_raise(flag, values, error):
   if values is not None:  # the JAX CLI raises the same error
     with pytest.raises(ValueError, match=flag[2:].split("=")[0]):
       _jax_overrides(values)
+
+
+def test_rainbow_flags_reach_the_engine_spec():
+  argv = ["--agent=rainbow", "--vmax=5", "--num_atoms=21",
+          "--noisy_weight_init=0.5"]
+  engine = ttrain.build_engine(
+      "rainbow", "catch", num_envs=2, replay_capacity=64,
+      spec_overrides=ttrain._spec_overrides(ttrain._parser().parse_args(
+          argv)), device="cpu")
+  spec = engine.config.agent
+  assert (spec.vmax, spec.num_atoms, spec.noisy_weight_init) == \
+      (5.0, 21, 0.5)
+  assert engine.network.num_atoms == 21
+  assert float(engine.network.support("cpu")[-1]) == 5.0
+  sigma = engine.init(0).online_params["value"]["hidden"]["sigma"]["w"]
+  assert float(sigma[0, 0].detach()) == pytest.approx(0.5 / 3136 ** 0.5)

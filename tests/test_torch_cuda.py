@@ -35,7 +35,7 @@ def _gen(seed):
 
 @pytest.mark.parametrize("dtype", [torch.int64, torch.int32],
                          ids=["int64", "int32"])
-@pytest.mark.parametrize("batch,window", [(1024, 5), (3, 7)])
+@pytest.mark.parametrize("batch,window", [(1024, 5), (3, 7), (1024, 7)])
 def test_k1_matches_plain(dev, batch, window, dtype):
   g = _gen(0)
   frames = torch.randint(0, 256, (16, 40, 84, 84), generator=g, device=dev,

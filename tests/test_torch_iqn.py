@@ -266,11 +266,12 @@ def test_iqn_spec_has_the_jax_values():
   jspec, tspec = jget_agent("iqn"), get_agent("iqn")
   for f in dataclasses.fields(tspec):
     if f.name in ("make_network", "loss", "act", "act_takes_taus",
-                  "loss_takes_taus"):
+                  "loss_takes_taus", "act_takes_noise", "loss_takes_noise"):
       continue
     assert getattr(tspec, f.name) == getattr(jspec, f.name), f.name
   assert tspec.act_takes_taus and not get_agent("dqn").act_takes_taus
-  assert all_agent_names() == ["double_q", "dqn", "iqn", "prioritized"]
+  assert all_agent_names() == ["double_q", "dqn", "iqn", "prioritized",
+                               "rainbow"]
 
 
 @pytest.mark.parametrize("epsilon", [0.0, 0.5])

@@ -232,14 +232,38 @@ def test_dqn_loss_grad_update_step_matches_jax():
 
 
 def test_optimizers_not_ported_yet_raise():
+  """An unknown optimizer raises; Adam is ported (tests/test_torch_iqn.py
+  holds it against optax.adam); a global-norm clip wraps either optimizer
+  and steps as optax.chain(clip_by_global_norm(10), optimizer) does, for
+  gradients of global norm above 10 and below: rtol 1e-6, atol 1e-9, the
+  bound of the Adam test."""
   spec = get_agent("dqn")
-  with pytest.raises(NotImplementedError):
-    make_optimizer(dataclasses.replace(spec, max_global_grad_norm=10.0))
-  with pytest.raises(NotImplementedError):  # clipping, whatever the optimizer
-    make_optimizer(dataclasses.replace(spec, optimizer="adam",
-                                       max_global_grad_norm=10.0))
   with pytest.raises(ValueError):
     make_optimizer(dataclasses.replace(spec, optimizer="sgd"))
-  # Adam is ported (tests/test_torch_iqn.py holds it against optax.adam).
   assert type(make_optimizer(dataclasses.replace(
       spec, optimizer="adam"))).__name__ == "Adam"
+  rng = np.random.RandomState(12)
+  params = {"a": {"w": rng.randn(5, 3).astype(np.float32),
+                  "b": rng.randn(3).astype(np.float32)},
+            "c": rng.randn(7).astype(np.float32)}
+  for optimizer in ("rmsprop", "adam"):
+    clipped = dataclasses.replace(spec, optimizer=optimizer,
+                                  max_global_grad_norm=10.0)
+    jopt = jmake_optimizer(clipped)
+    jstate = jopt.init(params)
+    topt = make_optimizer(clipped)
+    tparams = convert.params_from_jax(params, "cpu")
+    tstate = topt.init(leaves(tparams))
+    jp = params
+    for scale in (10.0, 0.5, 3.0, 0.01):  # global norms ~45, 2, 13, 0.05
+      grads = jax.tree.map(
+          lambda p: (rng.randn(*p.shape) * scale).astype(np.float32), params)
+      norm = float(optax.global_norm(grads))
+      assert abs(norm - 10.0) > 1.0
+      updates, jstate = jopt.update(grads, jstate)
+      jp = optax.apply_updates(jp, updates)
+      topt.step(leaves(tparams),
+                leaves(convert.params_from_jax(grads, "cpu")), tstate)
+    for a, b in zip(leaves(tparams), jax.tree.leaves(jp)):
+      np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                 atol=1e-9, err_msg=optimizer)

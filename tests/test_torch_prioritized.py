@@ -56,7 +56,8 @@ def test_spec_has_the_jax_values(name):
   jspec, tspec = jget_agent(name), get_agent(name)
   for f in dataclasses.fields(tspec):
     if f.name not in ("make_network", "loss", "act", "act_takes_taus",
-                      "loss_takes_taus"):
+                      "loss_takes_taus", "act_takes_noise",
+                      "loss_takes_noise"):
       assert getattr(tspec, f.name) == getattr(jspec, f.name), f.name
 
 

@@ -13,7 +13,7 @@ last line of an agent gives the fenced stage split (ms per superstep) over
 40 learning supersteps, taken after the probe's last chunk.
 
 Usage (one or more agents, each run in turn in this process):
-  python3 tools/torch_diag_catch.py dqn prioritized --frames=600000 \\
+  python3 tools/torch_diag_catch.py dqn prioritized rainbow --frames=600000 \\
       --out=torch_diag_catch.jsonl
 Runs on the card; `--device=cpu` with small `--num_envs`,
 `--replay_capacity` and `--chunk` rehearses it on the CPU. Imports nothing

@@ -9,7 +9,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      and K2's dynamic shared memory beside it);
   2. hold each kernel against its plain PyTorch version at the main paths'
      shapes (K1 at W = 5 and W = 7), and time kernel, plain version,
-     library call and bound;
+     library call and bound; then SEAQUEST: 64 groups of the port's vector
+     seaquest at 128 envs on the card and on the CPU from the same draws
+     (per-frame diver spawns, noop burns) and actions, every output
+     (frames, rewards, lives, ...) and state field required bit for bit;
   3. drive the first main path — build_engine("dqn", "pong", num_envs=128,
      replay_capacity=1e6) in throughput mode (batch 1024) — through enough
      supersteps for >= 20 learn steps (a timed window of 600, which holds
@@ -30,6 +33,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      against the plain torso under the same noise, the launches per learning
      superstep (K1 1, K2 1, K3a 3, K3b 1) and the replay-less checkpoint's
      size;
+  4c. drive the c51 and qrdqn paths on seaquest (C51_MAIN, QRDQN_MAIN) —
+     build_engine("c51" or "qrdqn", "seaquest", num_envs=128,
+     replay_capacity=1e6): batch 1024, 18 actions, 51 atoms on ±10 or 201
+     quantiles, clip + Adam, uniform replay — with 3's lowered min fill
+     through 80 supersteps (20 warm, 40 timed, 20 fenced), then one eval
+     chunk; check the loss (c51's from log 51), the outputs against the
+     plain torso, the launches per learning superstep (K1 1, K2 1, K3a 2,
+     K3b 1) and print the replay-less checkpoint's bytes against 64 MiB,
+     the most a chain of training legs carries from one run to the next;
   5. drive the iqn path — build_engine("iqn", "pong", num_envs=128,
      replay_capacity=1e6) at the agent's own min fill: 120 acting and
      replay-filling supersteps, on past the min fill through >= 20 learn
@@ -110,6 +122,10 @@ PATH_KERNELS = {
                "dqn_torso_fwd_residuals"),
     "rainbow": ("gather_windows", "pooled_frame_to_84", "dqn_torso_fwd",
                 "dqn_torso_fwd_residuals"),
+    "c51": ("gather_windows", "pooled_frame_to_84", "dqn_torso_fwd",
+            "dqn_torso_fwd_residuals"),
+    "qrdqn": ("gather_windows", "pooled_frame_to_84", "dqn_torso_fwd",
+              "dqn_torso_fwd_residuals"),
 }
 
 
@@ -1054,6 +1070,216 @@ def phase_rainbow_path(dev):
   return counts
 
 
+def _to_device(tree, dev):
+  """A NamedTuple of tensors (nested) copied to `dev`."""
+  if isinstance(tree, torch.Tensor):
+    return tree.to(dev)
+  return type(tree)(*(_to_device(x, dev) for x in tree))
+
+
+def check_seaquest(dev):
+  """SEAQUEST: the port's vector seaquest at B=128 on the card and on the
+  CPU for 64 groups from the same draws (per-frame diver spawns, noop burns)
+  and the same actions, made on the CPU; every output (frames, rewards,
+  lives, ...) and every state field must agree bit for bit."""
+  from dqn_zoo_torch.envs.api import get_game
+  from dqn_zoo_torch.envs.vector import VectorAtariEnv
+
+  b, groups = 128, 64
+  game = get_game("seaquest")
+  envs = {d: VectorAtariEnv(game, b, device=d) for d in ("cpu", dev)}
+  gen = torch.Generator().manual_seed(9)
+  cpu_state = envs["cpu"].init(gen)
+  card_state = _to_device(cpu_state, dev)
+  resets = spawns = 0
+  t_cpu = t_card = 0.0
+  for g in range(groups):
+    draws = envs["cpu"].draws(gen)
+    actions = torch.randint(0, game.num_actions, (b,), generator=gen)
+    divers = cpu_state.game_state.diver_live
+    resets += int(cpu_state.needs_reset.any())
+    t0 = time.perf_counter()
+    cpu_state, cpu_out = envs["cpu"].step(cpu_state, actions, draws)
+    t1 = time.perf_counter()
+    card_state, card_out = envs[dev].step(
+        card_state, actions.to(dev), _to_device(draws, dev))
+    torch.cuda.synchronize()
+    t_cpu += t1 - t0
+    t_card += time.perf_counter() - t1
+    for name, a, w in zip(cpu_out._fields, card_out, cpu_out):
+      if not torch.equal(a.cpu(), w):
+        fail(f"SEAQUEST: output {name} differs between the card and the CPU "
+             f"at group {g}")
+    for name, a, w in zip(cpu_state.game_state._fields, card_state.game_state,
+                          cpu_state.game_state):
+      if not torch.equal(a.cpu(), w):
+        fail(f"SEAQUEST: state field {name} differs at group {g}")
+    for name in ("episode_frames", "needs_reset"):
+      if not torch.equal(getattr(card_state, name).cpu(),
+                         getattr(cpu_state, name)):
+        fail(f"SEAQUEST: {name} differs at group {g}")
+    spawns += int((cpu_state.game_state.diver_live & ~divers).sum())
+  if resets < 2 or spawns == 0:
+    fail(f"SEAQUEST: {resets} reset groups and {spawns} diver spawns in "
+         f"{groups} groups")
+  print("SEAQUEST " + json.dumps(dict(
+      envs=b, groups=groups, bit_identical=True, reset_groups=resets,
+      diver_spawns=spawns, card_ms_per_group=1e3 * t_card / groups,
+      cpu_ms_per_group=1e3 * t_cpu / groups)), flush=True)
+
+
+def phase_seaquest_path(dev, name: str):
+  """The port's c51/seaquest or qrdqn/seaquest trainer (C51_MAIN,
+  QRDQN_MAIN) at the CLI defaults (128 envs, replay 1e6, throughput batch
+  1024, 18 actions; 51 atoms on ±10 or 201 quantiles; clip + Adam) through
+  the user's entry points, with MAIN's lowered min fill: 20 warm, 40 timed
+  and 20 fenced learning supersteps, then one eval chunk. Checks the loss,
+  the outputs against the plain torso and the launches per learning
+  superstep, prints the replay-less checkpoint's size against 64 MiB (the
+  most a chain of training legs carries between runs), and returns the
+  launch counts."""
+  import shutil
+  from dqn_zoo_torch import kernels
+  from dqn_zoo_torch.agents.base import ClipByGlobalNorm
+  from dqn_zoo_torch.engine.superstep import leaves
+  from dqn_zoo_torch.nets import atari, torso_cuda
+  from dqn_zoo_torch.run import checkpoint as ckpt
+  from dqn_zoo_torch.run.train import build_engine, save_checkpoint
+
+  tag = f"{name.upper()}_MAIN"
+  engine = build_engine(name, "seaquest", num_envs=128,
+                        replay_capacity=1_000_000,
+                        min_replay_capacity_fraction=0.002, device="cuda")
+  cfg, spec = engine.config, engine.spec
+  a = engine.game.num_actions
+  dist_shape = ((cfg.num_envs, a, 51) if name == "c51"
+                else (cfg.num_envs, 201, a))
+  if (cfg.batch_size, cfg.learn_every, cfg.updates_per_learn) != (1024, 1, 1) \
+      or a != 18 or engine.rcfg.priority_exponent != 0.0 \
+      or (name == "c51" and (spec.num_atoms, spec.vmax) != (51, 10.0)) \
+      or (name == "qrdqn" and spec.num_quantiles != 201) \
+      or not isinstance(engine.optimizer, ClipByGlobalNorm):
+    fail(f"unexpected {name} schedule {cfg} or spec {spec}")
+  state = engine.init(seed=11)
+  torch.cuda.synchronize()
+  n_params = sum(p.numel() for p in leaves(state.online_params))
+  print(f"{tag} engine built: replay {cfg.num_envs}x{cfg.slots_per_stream} "
+        f"rows, {n_params} parameters", flush=True)
+
+  kernels.reset_counts()
+  warm = 20  # the learn gate opens at ~2000 active rows (superstep ~18)
+  state = engine.run(state, warm)
+  torch.cuda.synchronize()
+  if state.telemetry.learn_steps == 0:
+    fail(f"{name} took no learn step in {warm} supersteps")
+  first_loss = float(state.telemetry.last_loss)
+  timed = 40
+  steps_before = state.telemetry.learn_steps
+  counts_before = kernels.counts()
+  resets, losses = [], []
+  t0 = time.perf_counter()
+  for _ in range(timed):
+    resets.append(state.env.needs_reset.any())
+    state = engine.superstep(state)
+    losses.append(state.telemetry.last_loss)
+  torch.cuda.synchronize()
+  t_run = time.perf_counter() - t0
+  counts_after = kernels.counts()
+  if state.telemetry.learn_steps - steps_before != timed:
+    fail(f"{state.telemetry.learn_steps - steps_before} {name} learn steps "
+         f"in {timed} timed supersteps")
+  per_learning_superstep = {
+      k: (counts_after[k] - counts_before[k]) / timed for k in counts_after
+      if k in PATH_KERNELS[name]}
+  # act and the target net on K3a, the online net on K3b.
+  want = {"gather_windows": 1, "pooled_frame_to_84": 1, "dqn_torso_fwd": 2,
+          "dqn_torso_fwd_residuals": 1}
+  if per_learning_superstep != want:
+    fail(f"launches per {name} learning superstep {per_learning_superstep}, "
+         f"expected {want}")
+  split = {}
+  fenced = 20
+  state = engine.run(state, fenced, timings=split)
+  torch.cuda.synchronize()
+  train_counts = kernels.counts()
+  estate = engine.eval_init(seed=12, num_envs=4)
+  t0 = time.perf_counter()
+  estate = engine.eval_run(state.online_params, estate, 100)
+  torch.cuda.synchronize()
+  t_eval = time.perf_counter() - t0
+  counts = kernels.counts()
+
+  m = engine.metrics(state)
+  losses = torch.stack(losses).tolist() + [m.last_loss]
+  if m.learn_steps < 20 or not all(math.isfinite(x) for x in losses):
+    fail(f"{name}: {m.learn_steps} learn steps, losses {losses}")
+  # Near the start: c51's cross-entropy begins at log 51 (near-uniform
+  # logits) and stays below it plus a margin; qrdqn's quantile loss within
+  # a few times its first value.
+  if name == "c51":
+    near = abs(first_loss - math.log(51)) < 0.05 and \
+        max(losses) < math.log(51) + 0.5
+  else:
+    near = 0.0 < first_loss and max(losses) < 4.0 * first_loss + 1.0
+  if not near:
+    fail(f"{name} loss left its start: first {first_loss}, then {losses}")
+  for k in PATH_KERNELS[name]:
+    if counts[k] == 0:
+      fail(f"kernel {k} was not launched on the {name} main path")
+  if counts["pooled_frame_to_84"] - train_counts["pooled_frame_to_84"] < 100:
+    fail(f"{name} eval launched K2 fewer than 100 times")
+  if int(estate.env_frames) <= 0:
+    fail(f"{name} eval ran no frames")
+
+  # Outputs: the current observations through the kernels, against the
+  # plain torso and the same head.
+  with torch.no_grad():
+    obs = state.stack.frames
+    got = engine.network.apply(state.online_params, obs)
+    t = state.online_params["torso"]
+    plain_torso = torso_cuda.torso_plain(
+        t["conv1"]["w"], t["conv1"]["b"], t["conv2"]["w"], t["conv2"]["b"],
+        t["conv3"]["w"], t["conv3"]["b"], obs)
+    plain_dist = atari.dqn_value_head(state.online_params["head"],
+                                      plain_torso).reshape(dist_shape)
+  dist = got.q_logits if name == "c51" else got.q_dist
+  if tuple(dist.shape) != dist_shape or \
+      tuple(got.q_values.shape) != (cfg.num_envs, a) or \
+      not bool(torch.isfinite(dist).all()):
+    fail(f"bad {name} outputs {tuple(dist.shape)}")
+  torch.testing.assert_close(dist, plain_dist, rtol=1e-4, atol=1e-5)
+
+  # The replay-less checkpoint a chain of legs carries between calls.
+  root = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".ckpt",
+                      f"chip_smoke_{name}")
+  shutil.rmtree(root, ignore_errors=True)
+  lite = ckpt.TorchCheckpoint(root)
+  save_checkpoint(lite, state, 1, {}, 0, checkpoint_replay=False)
+  replayless_bytes = os.path.getsize(lite.state_path())
+  shutil.rmtree(root, ignore_errors=True)
+
+  summary = dict(
+      supersteps=warm + timed + fenced, learn_steps=m.learn_steps,
+      first_loss=first_loss, last_loss=m.last_loss,
+      loss_range=[min(losses), max(losses)], replay_size=m.replay_size,
+      env_frames=m.env_frames, timed_supersteps=timed,
+      training_env_steps_per_s=timed * cfg.num_envs / t_run,
+      ms_per_learning_superstep=1e3 * t_run / timed,
+      reset_supersteps_in_timed=int(torch.stack(resets).sum()),
+      split_ms_per_superstep={k: 1e3 * v / fenced for k, v in split.items()},
+      launches_per_learning_superstep=per_learning_superstep,
+      parameters=n_params, eval_supersteps=100,
+      eval_frames=int(estate.env_frames),
+      eval_ms_per_superstep=1e3 * t_eval / 100, train_launches=train_counts,
+      eval_launches={k: counts[k] - train_counts[k] for k in counts},
+      dist_max_abs_err=float((dist - plain_dist).abs().max()),
+      replayless_checkpoint_bytes=replayless_bytes,
+      replayless_checkpoint_fits_64mib=replayless_bytes <= 64 * 2**20,
+      peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=card())
+  print(f"{tag} " + json.dumps(summary), flush=True)
+  return counts
+
+
 def phase_iqn_path(dev):
   """The port's iqn/pong trainer at full width (latent 64, 64 taus of each
   kind, D = 3136, H = 512, A = 6, batch 1024) through the user's entry
@@ -1499,12 +1725,15 @@ def main() -> int:
     print(f"PTXAS {source} {json.dumps(report)}", flush=True)
 
   checks = phase_kernels(dev)
+  check_seaquest(dev)
   # Each engine holds a 7 GB frame store: one path's state is dropped
   # before the next is built.
   path_counts = {}
   for path, phase in (("dqn", phase_main_path),
                       ("prioritized", phase_per_path),
                       ("rainbow", phase_rainbow_path),
+                      ("c51", lambda d: phase_seaquest_path(d, "c51")),
+                      ("qrdqn", lambda d: phase_seaquest_path(d, "qrdqn")),
                       ("iqn", phase_iqn_path),
                       ("resume", phase_resume_path)):
     torch.cuda.empty_cache()

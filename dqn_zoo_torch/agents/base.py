@@ -10,6 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, List, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 
@@ -141,7 +142,8 @@ class Adam:
     mu ← b1·mu + (1−b1)·g,   nu ← b2·nu + (1−b2)·g²,   t ← t + 1
     p  ← p − lr · (mu / (1−b1ᵗ)) / (sqrt(nu / (1−b2ᵗ)) + eps)
   from zero moments. The count lives on the host, so the bias corrections
-  are plain numbers and a step reads nothing back from the device.
+  are plain numbers (f32, as optax's) and a step reads nothing back from
+  the device.
   """
 
   def __init__(self, learning_rate: float, eps: float, b1: float = 0.9,
@@ -161,9 +163,11 @@ class Adam:
            state: AdamState) -> None:
     """Updates the parameter leaves and the state in place."""
     state.count.add_(1)
-    t = int(state.count)
-    c1 = 1.0 - self.b1 ** t
-    c2 = 1.0 - self.b2 ** t
+    t = np.float32(int(state.count))
+    # 1 − bᵗ in f32, as optax takes it: in f64, 1 − 0.999 is 1.3e-5 off
+    # optax's first-step correction, which moves a step by ~6e-6 of lr.
+    c1 = float(np.float32(1) - np.float32(self.b1) ** t)
+    c2 = float(np.float32(1) - np.float32(self.b2) ** t)
     for p, g, mu, nu in zip(leaves, grads, state.mu, state.nu):
       mu.mul_(self.b1).add_(g, alpha=1 - self.b1)
       nu.mul_(self.b2).addcmul_(g, g, value=1 - self.b2)
@@ -219,8 +223,8 @@ def register_agent(spec: AgentSpec) -> AgentSpec:
 
 
 def get_agent(name: str) -> AgentSpec:
-  from dqn_zoo_torch.agents import (double_q, dqn, iqn,  # noqa: F401
-                                   prioritized, rainbow)
+  from dqn_zoo_torch.agents import (c51, double_q, dqn,  # noqa: F401
+                                   iqn, prioritized, qrdqn, rainbow)
   if name not in _REGISTRY:
     raise KeyError(f"Agent {name!r} is not ported yet; have "
                    f"{sorted(_REGISTRY)}.")
@@ -228,6 +232,6 @@ def get_agent(name: str) -> AgentSpec:
 
 
 def all_agent_names():
-  from dqn_zoo_torch.agents import (double_q, dqn, iqn,  # noqa: F401
-                                   prioritized, rainbow)
+  from dqn_zoo_torch.agents import (c51, double_q, dqn,  # noqa: F401
+                                   iqn, prioritized, qrdqn, rainbow)
   return sorted(_REGISTRY)

@@ -25,9 +25,15 @@ class Game(NamedTuple):
   render:      (state) -> (B, 210, 160, 3) uint8
   lives:       (state) -> (B,) int32
   init_draws:  (generator, B, device) -> the draws `init` consumes
-  step_draws:  (generator, B, device) -> the draws one action-repeat group
-               of `step` consumes (a game must need at most one such draw
-               per env per group)
+  step_draws:  (generator, B, device) -> the draws of `step`; where
+               `per_frame_draws` is false, one set serves every raw frame
+               of an action-repeat group (and every frame of a noop burn),
+               so such a game must need at most one draw per env per group;
+               where it is true, (generator, B, device, frames) -> the draws
+               of `frames` raw frames, each tensor with a leading frame
+               axis, and frame m of a group or a burn gets slice m
+  per_frame_draws: the game draws on every raw frame (seaquest's diver
+               spawns), so the vector env hands each frame its own slice
   """
 
   name: str
@@ -39,6 +45,7 @@ class Game(NamedTuple):
   lives: Callable[[Any], torch.Tensor]
   init_draws: Callable[..., Any]
   step_draws: Callable[..., Any]
+  per_frame_draws: bool = False
 
 
 class GroupOutput(NamedTuple):
@@ -73,7 +80,7 @@ def register_game(game: Game) -> Game:
 
 
 def get_game(name: str) -> Game:
-  from dqn_zoo_torch.envs.games import catch, pong  # noqa: F401
+  from dqn_zoo_torch.envs.games import catch, pong, seaquest  # noqa: F401
   if name not in _REGISTRY:
     raise KeyError(f"Game {name!r} is not ported yet; have "
                    f"{sorted(_REGISTRY)}.")

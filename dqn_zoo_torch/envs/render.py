@@ -33,11 +33,14 @@ def compose(batch: int, device, background_rgb, *layers) -> torch.Tensor:
   """Paints (mask, rgb) layers over a constant background, later on top.
 
   Returns (B, 210, 160, 3) uint8; masks are (210, 160) or (B, 210, 160).
+  Each pixel takes the index of its top layer, and one gather from the
+  palette paints them all: the same frame as a select per layer, with one
+  copy of colours to the device in place of one a layer.
   """
-  frame = torch.tensor(background_rgb, dtype=torch.uint8,
-                       device=device).expand(batch, FRAME_HEIGHT,
-                                             FRAME_WIDTH, 3)
-  for mask, rgb in layers:
-    color = torch.tensor(rgb, dtype=torch.uint8, device=device)
-    frame = torch.where(mask[..., None], color, frame)
-  return frame
+  palette = torch.tensor((background_rgb,) + tuple(rgb for _, rgb in layers),
+                         dtype=torch.uint8, device=device)
+  index = torch.zeros((batch, FRAME_HEIGHT, FRAME_WIDTH), dtype=torch.int64,
+                      device=device)
+  for k, (mask, _) in enumerate(layers, 1):
+    index.masked_fill_(mask, k)
+  return palette[index]

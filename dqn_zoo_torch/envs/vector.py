@@ -10,6 +10,11 @@ Kept from the reference: action repeat 4 with post-terminal substeps masked
 out, the penultimate/last frame capture at substeps 3 and 4, the life-loss
 discount, the 108k-frame episode cap (truncation, which bootstraps) and the
 auto-reset that emits a FIRST group.
+
+A game with `per_frame_draws` (seaquest) gets draws with a leading frame
+axis, one slice for each raw frame of the group and of the noop burn, as
+the reference splits a new key on every frame; the others get one set that
+serves every frame.
 """
 
 from __future__ import annotations
@@ -38,7 +43,8 @@ class VecEnvState(NamedTuple):
 
 
 class EnvDraws(NamedTuple):
-  """Everything random one `step` may consume, one value per env."""
+  """Everything random one `step` may consume, one value per env (per
+  frame, for a game with `per_frame_draws`)."""
 
   noops: torch.Tensor  # (B,) int in [1, max_noops] — noop burn length
   init: Any  # game init draws of a reset
@@ -62,14 +68,23 @@ class VectorAtariEnv:
     return self.game.num_actions
 
   def draws(self, gen: torch.Generator) -> EnvDraws:
-    b, dev = self.batch_size, self.device
-    return EnvDraws(
-        noops=torch.randint(1, self.config.max_noops + 1, (b,),
-                            generator=gen, device=dev),
-        init=self.game.init_draws(gen, b, dev),
-        burn=self.game.step_draws(gen, b, dev),
-        step=self.game.step_draws(gen, b, dev),
-    )
+    b, dev, cfg = self.batch_size, self.device, self.config
+    noops = torch.randint(1, cfg.max_noops + 1, (b,), generator=gen,
+                          device=dev)
+    init = self.game.init_draws(gen, b, dev)
+    if self.game.per_frame_draws:
+      burn = self.game.step_draws(gen, b, dev, cfg.max_noops)
+      step = self.game.step_draws(gen, b, dev, cfg.action_repeat)
+    else:
+      burn = self.game.step_draws(gen, b, dev)
+      step = self.game.step_draws(gen, b, dev)
+    return EnvDraws(noops=noops, init=init, burn=burn, step=step)
+
+  def _frame_draws(self, draws, m: int):
+    """The game draws of raw frame m of a group or a burn."""
+    if not self.game.per_frame_draws:
+      return draws
+    return type(draws)(*(x[m] for x in draws))
 
   def init(self, gen: torch.Generator) -> VecEnvState:
     """All envs start in needs_reset, so the first step emits FIRST groups."""
@@ -92,7 +107,8 @@ class VectorAtariEnv:
     done = torch.zeros((b,), dtype=torch.bool, device=self.device)
     for i in range(self.config.max_noops):
       active = draws.noops > i
-      g2, _, d2, _ = self.game.step(gs, noop, draws.burn)
+      g2, _, d2, _ = self.game.step(gs, noop,
+                                    self._frame_draws(draws.burn, i))
       keep = done | d2
       gs = tree_where(active & ~keep, g2, gs)
       done = torch.where(active, keep, done)
@@ -116,7 +132,8 @@ class VectorAtariEnv:
     repeat = self.config.action_repeat
     for m in range(repeat):
       execute = ~done
-      gs_n, r, d, ll = self.game.step(gs_c, actions, draws.step)
+      gs_n, r, d, ll = self.game.step(gs_c, actions,
+                                      self._frame_draws(draws.step, m))
       gs_c = tree_where(execute, gs_n, gs_c)
       reward = reward + torch.where(execute, r, fzero)
       life_disc = life_disc * torch.where(execute & ll, 0.0, 1.0)

@@ -1,13 +1,15 @@
-"""The DQN, double-DQN, IQN and rainbow Atari networks (port of
-dqn_zoo_tpu/nets/atari.py:58-150, :205-253 and :256-316).
+"""The DQN, double-DQN, C51, QR-DQN, IQN and rainbow Atari networks (port
+of dqn_zoo_tpu/nets/atari.py:58-202, :205-253 and :256-316).
 
 Parameters are a dict of tensors shaped like the JAX pytree:
   {"torso": {"conv1"|"conv2"|"conv3": {"w": HWIO, "b"}},
    "head": {"hidden": {"w": (3136, 512), "b"}, "out": {"w": (512, A), "b"}}}
 and, for IQN, also "tau_embed": {"w": (latent, 3136), "b"}. The double-DQN
-network's "out" has a (1,) bias shared by all actions. The rainbow network
-has "torso", "advantage" and "value", each stream {"hidden", "out"} of noisy
-layers ({"mu": {"w"[, "b"]}, "sigma": {"w", "b"}}, nets/core.py).
+network's "out" has a (1,) bias shared by all actions; the C51 network's
+"out" has A·atoms outputs, the QR-DQN network's quantiles·A. The rainbow
+network has "torso", "advantage" and "value", each stream {"hidden",
+"out"} of noisy layers ({"mu": {"w"[, "b"]}, "sigma": {"w", "b"}},
+nets/core.py).
 The torso flattens in (y, x, c) order as JAX flattens NHWC, so
 `head.hidden.w` carries across from JAX without a row permutation.
 """
@@ -29,6 +31,31 @@ class QNetworkOutputs(NamedTuple):
 class C51NetworkOutputs(NamedTuple):
   q_values: torch.Tensor  # (B, A): expected return under the support, detached
   q_logits: torch.Tensor  # (B, A, atoms)
+
+
+class QRNetworkOutputs(NamedTuple):
+  q_values: torch.Tensor  # (B, A): mean over the quantiles, detached
+  q_dist: torch.Tensor  # (B, quantiles, A)
+
+
+class _PerDevice:
+  """A 1-D host tensor (a support, the quantile midpoints) and its copies,
+  each made on its device once: `self(device)`."""
+
+  def __init__(self, values: torch.Tensor):
+    if values.dim() != 1:
+      raise ValueError(f"expected a 1-D tensor; got {tuple(values.shape)}.")
+    self._values = values
+    self._on: Dict[torch.device, torch.Tensor] = {}
+
+  def __len__(self) -> int:
+    return self._values.shape[0]
+
+  def __call__(self, device) -> torch.Tensor:
+    device = torch.device(device)
+    if device not in self._on:
+      self._on[device] = self._values.to(device)
+    return self._on[device]
 
 
 def dqn_torso(params, x: torch.Tensor) -> torch.Tensor:
@@ -81,6 +108,60 @@ def dqn_atari_network(num_actions: int) -> DqnAtariNetwork:
 def double_dqn_atari_network(num_actions: int) -> DqnAtariNetwork:
   """The DQN net with a shared-bias last layer (JAX nets/atari.py:133)."""
   return DqnAtariNetwork(num_actions, shared_bias=True)
+
+
+class C51AtariNetwork:
+  """C51 categorical net: the DQN torso and value head with A·atoms
+  outputs, reshaped (B, A, atoms); q_values = Σ softmax · support,
+  detached."""
+
+  def __init__(self, num_actions: int, support: torch.Tensor):
+    self.num_actions = num_actions
+    self.support = _PerDevice(support)
+    self.num_atoms = len(self.support)
+    self._body = DqnAtariNetwork(num_actions * self.num_atoms)
+
+  def init(self, gen: torch.Generator, device):
+    return self._body.init(gen, device)
+
+  def apply(self, params, x: torch.Tensor) -> C51NetworkOutputs:
+    q_logits = self._body.apply(params, x).q_values.reshape(
+        -1, self.num_actions, self.num_atoms)
+    q_dist = torch.softmax(q_logits.detach(), dim=-1)
+    q_values = torch.sum(q_dist * self.support(x.device)[None, None, :],
+                         dim=2)
+    return C51NetworkOutputs(q_values=q_values, q_logits=q_logits)
+
+
+def c51_atari_network(num_actions: int,
+                      support: torch.Tensor) -> C51AtariNetwork:
+  return C51AtariNetwork(num_actions, support)
+
+
+class QRAtariNetwork:
+  """QR-DQN quantile net: the DQN torso and value head with quantiles·A
+  outputs, reshaped quantiles first, (B, quantiles, A), as the JAX net
+  lays them out; q_values = the mean over the quantiles, detached."""
+
+  def __init__(self, num_actions: int, quantiles: torch.Tensor):
+    self.num_actions = num_actions
+    self.quantiles = _PerDevice(quantiles)
+    self.num_quantiles = len(self.quantiles)
+    self._body = DqnAtariNetwork(self.num_quantiles * num_actions)
+
+  def init(self, gen: torch.Generator, device):
+    return self._body.init(gen, device)
+
+  def apply(self, params, x: torch.Tensor) -> QRNetworkOutputs:
+    q_dist = self._body.apply(params, x).q_values.reshape(
+        -1, self.num_quantiles, self.num_actions)
+    return QRNetworkOutputs(q_values=torch.mean(q_dist.detach(), dim=1),
+                            q_dist=q_dist)
+
+
+def qr_atari_network(num_actions: int,
+                     quantiles: torch.Tensor) -> QRAtariNetwork:
+  return QRAtariNetwork(num_actions, quantiles)
 
 
 class IqnInputs(NamedTuple):
@@ -171,20 +252,10 @@ class RainbowAtariNetwork:
 
   def __init__(self, num_actions: int, support: torch.Tensor,
                noisy_weight_init: float):
-    if support.dim() != 1:
-      raise ValueError(f"support must be 1-D; got {tuple(support.shape)}.")
     self.num_actions = num_actions
-    self.num_atoms = support.shape[0]
+    self.support = _PerDevice(support)
+    self.num_atoms = len(self.support)
     self.noisy_weight_init = noisy_weight_init
-    self._support = support
-    self._support_on: Dict[torch.device, torch.Tensor] = {}
-
-  def support(self, device) -> torch.Tensor:
-    """The support on `device`, copied there once."""
-    device = torch.device(device)
-    if device not in self._support_on:
-      self._support_on[device] = self._support.to(device)
-    return self._support_on[device]
 
   def init(self, gen: torch.Generator, device):
     nl = lambda fan_in, n, bias: core.noisy_linear_init(

@@ -1,5 +1,5 @@
-"""Value-learning losses (port of dqn_zoo_tpu/ops/value_learning.py:26-66,
-:68-145 and the batch forms of :148-155 for the ported agents)."""
+"""Value-learning losses (port of dqn_zoo_tpu/ops/value_learning.py:26-145
+and the batch forms of :148-155)."""
 
 from __future__ import annotations
 
@@ -96,6 +96,18 @@ def _categorical_loss(q_atoms_tm1, q_logits_tm1, a_tm1, r_t, discount_t,
                                   q_atoms_tm1)
   log_p = torch.log_softmax(_pick(q_logits_tm1, a_tm1), dim=-1)
   return -torch.sum(target.detach() * log_p, dim=-1)
+
+
+def batch_categorical_q_learning(q_atoms_tm1, q_logits_tm1, a_tm1, r_t,
+                                 discount_t, q_atoms_t, q_logits_t):
+  """The C51 loss over a leading batch axis (the reference's vmap with shared
+  supports): the greedy a_t is the argmax of the target distribution's own
+  mean. q_logits_* (B, A, atoms), a_tm1, r_t, discount_t (B,) → (B,)."""
+  q_t_probs = torch.softmax(q_logits_t, dim=-1)
+  q_t = torch.sum(q_t_probs * q_atoms_t[None, None, :], dim=-1)
+  a_t = torch.argmax(q_t, dim=-1)
+  return _categorical_loss(q_atoms_tm1, q_logits_tm1, a_tm1, r_t, discount_t,
+                           q_atoms_t, q_t_probs, a_t)
 
 
 def batch_categorical_double_q_learning(q_atoms_tm1, q_logits_tm1, a_tm1, r_t,

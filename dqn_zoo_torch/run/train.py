@@ -6,9 +6,9 @@ The reference's run protocol: iterations of (train phase, eval phase),
 iteration 0 eval-only, one CSV row and one log line per iteration with the
 reference's 13 fields plus `eval_frames`. Flag names are the JAX CLI's;
 flags of parts not ported yet (the PIL resize, multi-device) raise when
-set. Agents: dqn, double_q, prioritized, iqn and rainbow (each also has
-its runner, `python -m dqn_zoo_torch.run.agents.<agent>`). Games: pong and
-catch. Runs on CUDA unless --device=cpu.
+set. Agents: dqn, double_q, prioritized, iqn, rainbow, c51 and qrdqn (each
+also has its runner, `python -m dqn_zoo_torch.run.agents.<agent>`). Games:
+pong, catch and seaquest. Runs on CUDA unless --device=cpu.
 
 Checkpoint/resume as the JAX CLI has it: --checkpoint_path keeps one slot
 of the full state (run/checkpoint.py); a run that finds it resumes there,
@@ -49,7 +49,7 @@ _SPEC_FLOATS = (
     "huber_param", "vmax", "noisy_weight_init")
 _SPEC_INTS = ("target_network_update_period", "learn_period", "n_steps",
               "tau_latent_dim", "tau_samples_policy", "tau_samples_s_tm1",
-              "tau_samples_s_t", "num_atoms")
+              "tau_samples_s_t", "num_atoms", "num_quantiles")
 # Supersteps between the train phase's fences (budget checks, saves).
 TRAIN_CHUNK = 100
 # Flag name -> AgentSpec field, where they differ.

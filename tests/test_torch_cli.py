@@ -26,6 +26,8 @@ _CASES = [
     # A reference rainbow command line: the three rainbow flags.
     dict(vmax=5.0, num_atoms=21, noisy_weight_init=0.5, n_steps=3,
          max_global_grad_norm=5.0),
+    # A reference qrdqn command line.
+    dict(num_quantiles=51, huber_param=0.5, learning_rate=1e-4),
 ]
 
 
@@ -41,14 +43,14 @@ def _jax_overrides(values: dict) -> dict:
 
 @pytest.mark.parametrize("values", _CASES,
                          ids=["iqn", "dqn_family", "unset", "prioritized",
-                              "rainbow"])
+                              "rainbow", "qrdqn"])
 def test_spec_overrides_match_the_jax_cli(values):
   argv = ["--agent=iqn"] + _argv(values)
   ours = ttrain._spec_overrides(ttrain._parser().parse_args(argv))
   assert ours == _jax_overrides(values)
   for name in ("huber_param", "tau_latent_dim", "tau_samples_policy",
                "tau_samples_s_tm1", "tau_samples_s_t", "compute_dtype",
-               "vmax", "num_atoms", "noisy_weight_init"):
+               "vmax", "num_atoms", "noisy_weight_init", "num_quantiles"):
     assert (name in ours) == (name in values), name
 
 
@@ -100,3 +102,18 @@ def test_rainbow_flags_reach_the_engine_spec():
   assert float(engine.network.support("cpu")[-1]) == 5.0
   sigma = engine.init(0).online_params["value"]["hidden"]["sigma"]["w"]
   assert float(sigma[0, 0].detach()) == pytest.approx(0.5 / 3136 ** 0.5)
+
+
+def test_num_quantiles_reaches_the_engine_spec():
+  argv = ["--agent=qrdqn", "--num_quantiles=51", "--huber_param=0.5"]
+  engine = ttrain.build_engine(
+      "qrdqn", "seaquest", num_envs=2, replay_capacity=64,
+      spec_overrides=ttrain._spec_overrides(ttrain._parser().parse_args(
+          argv)), device="cpu")
+  spec = engine.config.agent
+  assert (spec.num_quantiles, spec.huber_param) == (51, 0.5)
+  assert engine.network.num_quantiles == 51
+  assert float(engine.network.quantiles("cpu")[0]) == \
+      pytest.approx(0.5 / 51, rel=1e-7)
+  assert tuple(engine.init(0).online_params["head"]["out"]["w"].shape) == \
+      (512, 51 * 18)

@@ -270,8 +270,8 @@ def test_iqn_spec_has_the_jax_values():
       continue
     assert getattr(tspec, f.name) == getattr(jspec, f.name), f.name
   assert tspec.act_takes_taus and not get_agent("dqn").act_takes_taus
-  assert all_agent_names() == ["double_q", "dqn", "iqn", "prioritized",
-                               "rainbow"]
+  assert all_agent_names() == ["c51", "double_q", "dqn", "iqn",
+                               "prioritized", "qrdqn", "rainbow"]
 
 
 @pytest.mark.parametrize("epsilon", [0.0, 0.5])

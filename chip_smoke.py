@@ -13,6 +13,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      seaquest at 128 envs on the card and on the CPU from the same draws
      (per-frame diver spawns, noop burns) and actions, every output
      (frames, rewards, lives, ...) and state field required bit for bit;
+     GAMES: the same for breakout, space_invaders, freeway, asterix,
+     atlantis and skiing, 32 groups each under a 48-frame episode cap (each
+     runs its reset branch); PIL: the exact Pillow resize on the card
+     reproduces the golden digest of tests/test_pil_resize.py, and 128
+     pooled breakout frames give the same observations at `pil` on the card
+     and on the CPU;
   3. drive the first main path — build_engine("dqn", "pong", num_envs=128,
      replay_capacity=1e6) in throughput mode (batch 1024) — through enough
      supersteps for >= 20 learn steps (a timed window of 600, which holds
@@ -32,7 +38,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      fenced); check the loss, the priorities (in [0, 100]), the outputs
      against the plain torso under the same noise, the launches per learning
      superstep (K1 1, K2 1, K3a 3, K3b 1) and the replay-less checkpoint's
-     size;
+     size; then RAINBOW_BREAKOUT_MAIN, the same trainer on breakout (4
+     actions): 24 warm, 40 timed and 20 fenced supersteps and a
+     100-superstep eval chunk on 4 envs, the same checks; then PIL_MAIN,
+     the dqn/pong trainer at --resize_method=pil for 40 supersteps: K2 must
+     not launch, K1, K3a and K3b must (1, 2, 1 a learning superstep);
   4c. drive the c51 and qrdqn paths on seaquest (C51_MAIN, QRDQN_MAIN) —
      build_engine("c51" or "qrdqn", "seaquest", num_envs=128,
      replay_capacity=1e6): batch 1024, 18 actions, 51 atoms on ±10 or 201
@@ -126,7 +136,18 @@ PATH_KERNELS = {
             "dqn_torso_fwd_residuals"),
     "qrdqn": ("gather_windows", "pooled_frame_to_84", "dqn_torso_fwd",
               "dqn_torso_fwd_residuals"),
+    "rainbow_breakout": ("gather_windows", "pooled_frame_to_84",
+                         "dqn_torso_fwd", "dqn_torso_fwd_residuals"),
+    # The exact Pillow resize takes the place of K2's `fast` one.
+    "pil": ("gather_windows", "dqn_torso_fwd", "dqn_torso_fwd_residuals"),
 }
+# The games GAMES holds card against CPU, beside pong, catch and seaquest.
+NEW_GAMES = ("breakout", "space_invaders", "freeway", "asterix", "atlantis",
+             "skiing")
+# tests/test_pil_resize.py's digest of Pillow's resize of RandomState(42)'s
+# (210, 160) image.
+GOLDEN_RESIZE_DIGEST = (
+    "a28154a96c0bab2071ed282033e28a42c60bf414c8842183bedc25f0dc5798eb")
 
 
 def fail(msg: str):
@@ -910,12 +931,15 @@ def card() -> str:
   return smi.stdout.strip().splitlines()[0]
 
 
-def phase_rainbow_path(dev):
-  """The port's rainbow/pong trainer at the CLI defaults (128 envs, replay
-  1e6, throughput batch 1024, n-step 3 under prioritized replay, noisy
-  dueling C51 net, clip + Adam) through the user's entry points, with MAIN's
-  lowered min fill; checks the loss, the priorities, the outputs and the
-  launches per learning superstep, and returns the launch counts."""
+def phase_rainbow_path(dev, game: str = "pong", timed: int = 300,
+                       fenced: int = 40, eval_supersteps: int = 0):
+  """The port's rainbow trainer on `game` at the CLI defaults (128 envs,
+  replay 1e6, throughput batch 1024, n-step 3 under prioritized replay,
+  noisy dueling C51 net, clip + Adam) through the user's entry points, with
+  MAIN's lowered min fill: 24 warm supersteps, `timed` timed and `fenced`
+  fenced learning ones, then an eval chunk of `eval_supersteps` on 4 envs;
+  checks the loss, the priorities, the outputs and the launches per
+  learning superstep, and returns the launch counts."""
   import shutil
   from dqn_zoo_torch import kernels
   from dqn_zoo_torch.agents.base import ClipByGlobalNorm
@@ -925,7 +949,9 @@ def phase_rainbow_path(dev):
   from dqn_zoo_torch.run import checkpoint as ckpt
   from dqn_zoo_torch.run.train import build_engine, save_checkpoint
 
-  engine = build_engine("rainbow", "pong", num_envs=128,
+  path = "rainbow" if game == "pong" else f"rainbow_{game}"
+  tag = path.upper() + "_MAIN"
+  engine = build_engine("rainbow", game, num_envs=128,
                         replay_capacity=1_000_000,
                         min_replay_capacity_fraction=0.002, device="cuda")
   cfg, rcfg, spec = engine.config, engine.rcfg, engine.spec
@@ -939,7 +965,7 @@ def phase_rainbow_path(dev):
   state = engine.init(seed=7)
   torch.cuda.synchronize()
   n_params = sum(p.numel() for p in leaves(state.online_params))
-  print(f"RAINBOW_MAIN engine built: replay {cfg.num_envs}x"
+  print(f"{tag} engine built: replay {cfg.num_envs}x"
         f"{cfg.slots_per_stream} rows, {n_params} parameters", flush=True)
 
   kernels.reset_counts()
@@ -949,8 +975,7 @@ def phase_rainbow_path(dev):
   state = engine.run(state, warm)
   torch.cuda.synchronize()
   if state.telemetry.learn_steps == 0:
-    fail(f"rainbow took no learn step in {warm} supersteps")
-  timed = 300
+    fail(f"{path} took no learn step in {warm} supersteps")
   steps_before = state.telemetry.learn_steps
   counts_before = kernels.counts()
   resets = []
@@ -962,31 +987,41 @@ def phase_rainbow_path(dev):
   t_run = time.perf_counter() - t0
   counts_after = kernels.counts()
   if state.telemetry.learn_steps - steps_before != timed:
-    fail(f"{state.telemetry.learn_steps - steps_before} rainbow learn steps "
+    fail(f"{state.telemetry.learn_steps - steps_before} {path} learn steps "
          f"in {timed} timed supersteps")
   per_learning_superstep = {
       k: (counts_after[k] - counts_before[k]) / timed for k in counts_after
-      if k in PATH_KERNELS["rainbow"]}
+      if k in PATH_KERNELS[path]}
   # act, the double-Q selector and the target net on K3a; the online net
   # on K3b; one window gather of W = 7 rows per sample.
   want = {"gather_windows": 1, "pooled_frame_to_84": 1, "dqn_torso_fwd": 3,
           "dqn_torso_fwd_residuals": 1}
   if per_learning_superstep != want:
-    fail(f"launches per rainbow learning superstep "
+    fail(f"launches per {path} learning superstep "
          f"{per_learning_superstep}, expected {want}")
   split = {}
-  fenced = 40
   state = engine.run(state, fenced, timings=split)
   torch.cuda.synchronize()
+  train_counts = kernels.counts()
+  eval_ms = eval_frames = None
+  if eval_supersteps:
+    estate = engine.eval_init(seed=8, num_envs=4)
+    t0 = time.perf_counter()
+    estate = engine.eval_run(state.online_params, estate, eval_supersteps)
+    torch.cuda.synchronize()
+    eval_ms = 1e3 * (time.perf_counter() - t0) / eval_supersteps
+    eval_frames = int(estate.env_frames)
+    if eval_frames <= 0:
+      fail(f"{path} eval ran no frames")
   counts = kernels.counts()
 
   m = engine.metrics(state)
   rep = state.replay
   if m.learn_steps < 20 or not math.isfinite(m.last_loss):
-    fail(f"rainbow: {m.learn_steps} learn steps, loss {m.last_loss}")
-  for name in PATH_KERNELS["rainbow"]:
+    fail(f"{path}: {m.learn_steps} learn steps, loss {m.last_loss}")
+  for name in PATH_KERNELS[path]:
     if counts[name] == 0:
-      fail(f"kernel {name} was not launched on the rainbow main path")
+      fail(f"kernel {name} was not launched on the {path} main path")
   # Priorities are clip(|loss|, 0, 100): the leaves written (priority^0.5)
   # lie in [0, 10] and the max seen is finite, at most 100.
   max_seen = float(rep.max_seen_priority)
@@ -994,7 +1029,7 @@ def phase_rainbow_path(dev):
   leaf_min = float(rep.value_tree[0].min())
   if not (math.isfinite(max_seen) and 0 < max_seen <= 100.0) or \
       max_seen == 1.0 or not 0.0 <= leaf_min <= leaf_max <= 10.0:
-    fail(f"rainbow priorities out of range: max seen {max_seen}, leaves "
+    fail(f"{path} priorities out of range: max seen {max_seen}, leaves "
          f"{leaf_min} .. {leaf_max}")
   # The priorities of a fresh batch (through the kernels, after the counts
   # were read) lie in [0, 100].
@@ -1009,7 +1044,7 @@ def phase_rainbow_path(dev):
   prio = out.priorities
   if not (bool(torch.isfinite(prio).all()) and float(prio.min()) >= 0.0
           and float(prio.max()) <= 100.0 and math.isfinite(float(out.loss))):
-    fail(f"rainbow priorities of a fresh batch out of [0, 100]: "
+    fail(f"{path} priorities of a fresh batch out of [0, 100]: "
          f"{float(prio.min())} .. {float(prio.max())}")
 
   # Outputs: the current observations through the kernels, against the
@@ -1037,13 +1072,13 @@ def phase_rainbow_path(dev):
       tuple(got.q_values.shape) != (cfg.num_envs, a) or \
       not bool(torch.isfinite(got.q_logits).all()) or \
       float(got.q_values.abs().max()) > spec.vmax:
-    fail(f"bad rainbow outputs {tuple(got.q_logits.shape)}")
+    fail(f"bad {path} outputs {tuple(got.q_logits.shape)}")
   torch.testing.assert_close(got.q_logits, plain_logits, rtol=1e-4, atol=1e-5)
   torch.testing.assert_close(got.q_values, plain_q, rtol=1e-4, atol=1e-5)
 
   # The replay-less checkpoint a chain of legs carries between calls.
   root = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".ckpt",
-                      "chip_smoke_rainbow")
+                      f"chip_smoke_{path}")
   shutil.rmtree(root, ignore_errors=True)
   lite = ckpt.TorchCheckpoint(root)
   save_checkpoint(lite, state, 1, {}, 0, checkpoint_replay=False)
@@ -1062,42 +1097,54 @@ def phase_rainbow_path(dev):
       parameters=n_params, max_seen_priority=max_seen,
       value_leaf_range=[leaf_min, leaf_max],
       fresh_batch_priority_range=[float(prio.min()), float(prio.max())],
-      fresh_batch_loss=float(out.loss), train_launches=counts,
+      fresh_batch_loss=float(out.loss), train_launches=train_counts,
+      eval_supersteps=eval_supersteps, eval_frames=eval_frames,
+      eval_ms_per_superstep=eval_ms,
+      eval_launches={k: counts[k] - train_counts[k] for k in counts},
       q_logits_max_abs_err=float((got.q_logits - plain_logits).abs().max()),
       replayless_checkpoint_bytes=replayless_bytes,
       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=card())
-  print("RAINBOW_MAIN " + json.dumps(summary), flush=True)
+  print(f"{tag} " + json.dumps(summary), flush=True)
   return counts
 
 
 def _to_device(tree, dev):
-  """A NamedTuple of tensors (nested) copied to `dev`."""
-  if isinstance(tree, torch.Tensor):
-    return tree.to(dev)
+  """A NamedTuple of tensors (nested; None for a game that draws nothing)
+  copied to `dev`."""
+  if tree is None or isinstance(tree, torch.Tensor):
+    return None if tree is None else tree.to(dev)
   return type(tree)(*(_to_device(x, dev) for x in tree))
 
 
-def check_seaquest(dev):
-  """SEAQUEST: the port's vector seaquest at B=128 on the card and on the
-  CPU for 64 groups from the same draws (per-frame diver spawns, noop burns)
-  and the same actions, made on the CPU; every output (frames, rewards,
-  lives, ...) and every state field must agree bit for bit."""
+def _hold_game(dev, name: str, groups: int, seed: int, cap=None,
+               count=None):
+  """The port's vector `name` at B=128 on the card and on the CPU for
+  `groups` groups from the same draws (noop burns, per-frame draws where
+  the game takes them) and the same actions, made on the CPU; every output
+  (frames, rewards, lives, ...) and every state field must agree bit for
+  bit. `cap` is the episode frame cap; `count(state before, state after,
+  output)` adds up a game event on the CPU's side. Returns the reset groups
+  after the first, the events and ms a group on the card and on the
+  CPU."""
   from dqn_zoo_torch.envs.api import get_game
-  from dqn_zoo_torch.envs.vector import VectorAtariEnv
+  from dqn_zoo_torch.envs.vector import VectorAtariEnv, VectorEnvConfig
 
-  b, groups = 128, 64
-  game = get_game("seaquest")
-  envs = {d: VectorAtariEnv(game, b, device=d) for d in ("cpu", dev)}
-  gen = torch.Generator().manual_seed(9)
+  b = 128
+  tag = name.upper()
+  game = get_game(name)
+  cfg = VectorEnvConfig() if cap is None else VectorEnvConfig(
+      episode_frame_cap=cap)
+  envs = {d: VectorAtariEnv(game, b, cfg, device=d) for d in ("cpu", dev)}
+  gen = torch.Generator().manual_seed(seed)
   cpu_state = envs["cpu"].init(gen)
   card_state = _to_device(cpu_state, dev)
-  resets = spawns = 0
+  resets = events = 0
   t_cpu = t_card = 0.0
   for g in range(groups):
     draws = envs["cpu"].draws(gen)
     actions = torch.randint(0, game.num_actions, (b,), generator=gen)
-    divers = cpu_state.game_state.diver_live
-    resets += int(cpu_state.needs_reset.any())
+    before = cpu_state
+    resets += g > 0 and bool(cpu_state.needs_reset.any())
     t0 = time.perf_counter()
     cpu_state, cpu_out = envs["cpu"].step(cpu_state, actions, draws)
     t1 = time.perf_counter()
@@ -1106,26 +1153,140 @@ def check_seaquest(dev):
     torch.cuda.synchronize()
     t_cpu += t1 - t0
     t_card += time.perf_counter() - t1
-    for name, a, w in zip(cpu_out._fields, card_out, cpu_out):
+    for field, a, w in zip(cpu_out._fields, card_out, cpu_out):
       if not torch.equal(a.cpu(), w):
-        fail(f"SEAQUEST: output {name} differs between the card and the CPU "
+        fail(f"{tag}: output {field} differs between the card and the CPU "
              f"at group {g}")
-    for name, a, w in zip(cpu_state.game_state._fields, card_state.game_state,
-                          cpu_state.game_state):
+    for field, a, w in zip(cpu_state.game_state._fields,
+                           card_state.game_state, cpu_state.game_state):
       if not torch.equal(a.cpu(), w):
-        fail(f"SEAQUEST: state field {name} differs at group {g}")
-    for name in ("episode_frames", "needs_reset"):
-      if not torch.equal(getattr(card_state, name).cpu(),
-                         getattr(cpu_state, name)):
-        fail(f"SEAQUEST: {name} differs at group {g}")
-    spawns += int((cpu_state.game_state.diver_live & ~divers).sum())
-  if resets < 2 or spawns == 0:
-    fail(f"SEAQUEST: {resets} reset groups and {spawns} diver spawns in "
-         f"{groups} groups")
-  print("SEAQUEST " + json.dumps(dict(
-      envs=b, groups=groups, bit_identical=True, reset_groups=resets,
-      diver_spawns=spawns, card_ms_per_group=1e3 * t_card / groups,
-      cpu_ms_per_group=1e3 * t_cpu / groups)), flush=True)
+        fail(f"{tag}: state field {field} differs at group {g}")
+    for field in ("episode_frames", "needs_reset"):
+      if not torch.equal(getattr(card_state, field).cpu(),
+                         getattr(cpu_state, field)):
+        fail(f"{tag}: {field} differs at group {g}")
+    if count is not None:
+      events += count(before, cpu_state, cpu_out)
+  return dict(envs=b, groups=groups, bit_identical=True, reset_groups=resets,
+              events=events, card_ms_per_group=1e3 * t_card / groups,
+              cpu_ms_per_group=1e3 * t_cpu / groups)
+
+
+def check_seaquest(dev):
+  """SEAQUEST: 64 groups of the port's vector seaquest at B=128 held card
+  against CPU (`_hold_game`), diver spawns from the per-frame draws
+  counted."""
+  spawns = lambda a, b, out: int((b.game_state.diver_live
+                                  & ~a.game_state.diver_live).sum())
+  line = _hold_game(dev, "seaquest", 64, 9, count=spawns)
+  line["diver_spawns"] = line.pop("events")
+  if line["reset_groups"] < 1 or line["diver_spawns"] == 0:
+    fail(f"SEAQUEST: {line['reset_groups']} reset groups and "
+         f"{line['diver_spawns']} diver spawns in 64 groups")
+  print("SEAQUEST " + json.dumps(line), flush=True)
+
+
+def check_games(dev):
+  """GAMES: 32 groups of each of NEW_GAMES at B=128 held card against CPU
+  (`_hold_game`) under a 48-frame episode cap, so that every game runs
+  its reset branch (the noop burn) after the first group; the env groups
+  with a nonzero reward are counted."""
+  rewarded = lambda a, b, out: int((out.raw_reward_sum != 0).sum())
+  lines = {}
+  for i, name in enumerate(NEW_GAMES):
+    line = _hold_game(dev, name, 32, 20 + i, cap=48, count=rewarded)
+    line["rewarded_env_groups"] = line.pop("events")
+    if line["reset_groups"] < 1:
+      fail(f"GAMES: {name} ran no reset group after the first")
+    lines[name] = line
+  print("GAMES " + json.dumps(lines), flush=True)
+
+
+def check_pil(dev):
+  """PIL, its kernel-free steps: the exact Pillow resize on the card
+  reproduces tests/test_pil_resize.py's golden digest from the same
+  RandomState(42) image, and 128 pooled breakout frames (a group of the
+  vector env at 128 envs after 12 groups of random play) give the same
+  observations at `pil` on the card and on the CPU."""
+  import hashlib
+  import numpy as np
+  from dqn_zoo_torch.envs.api import get_game
+  from dqn_zoo_torch.envs.vector import VectorAtariEnv
+  from dqn_zoo_torch.prep import atari as tprep
+  from dqn_zoo_torch.prep.pil_resize import resize_pil_exact
+
+  img = np.random.RandomState(42).randint(0, 256, (210, 160), np.uint8)
+  got = resize_pil_exact(torch.from_numpy(img).to(dev)).cpu().numpy()
+  digest = hashlib.sha256(got.tobytes()).hexdigest()
+  if digest != GOLDEN_RESIZE_DIGEST:
+    fail(f"PIL: the card's resize hashes to {digest}, not the golden digest")
+
+  game = get_game("breakout")
+  env = VectorAtariEnv(game, 128, device="cpu")
+  gen = torch.Generator().manual_seed(5)
+  state = env.init(gen)
+  for _ in range(12):
+    actions = torch.randint(0, game.num_actions, (128,), generator=gen)
+    state, out = env.step(state, actions, env.draws(gen))
+  frames = (out.frame_penult, out.frame_last)
+  want = tprep.pooled_frame_to_84(*frames, "pil")
+  on_card = [f.to(dev) for f in frames]
+  got = tprep.pooled_frame_to_84(*on_card, "pil")
+  if not torch.equal(got.cpu(), want):
+    fail(f"PIL: {int((got.cpu() != want).sum())} of {want.numel()} pixels "
+         f"differ between the card and the CPU")
+  ms = time_ms(lambda: tprep.pooled_frame_to_84(*on_card, "pil"))
+  print("PIL " + json.dumps(dict(
+      golden_digest=digest == GOLDEN_RESIZE_DIGEST, frames=128,
+      bit_identical=True, card_ms_per_call=ms, card=card())),
+      flush=True)
+
+
+def phase_pil_path(dev):
+  """PIL_MAIN: the dqn/pong trainer at `--resize_method=pil` at MAIN's
+  shapes and lowered min fill, 40 supersteps (20 of them learning ones);
+  the prep stage is max, luma and the exact resize, so K2 must not launch
+  and K1, K3a (act and target) and K3b must, once, twice and once a
+  learning superstep. Returns the launch counts."""
+  from dqn_zoo_torch import kernels
+  from dqn_zoo_torch.run.train import build_engine
+
+  engine = build_engine("dqn", "pong", num_envs=128,
+                        replay_capacity=1_000_000,
+                        min_replay_capacity_fraction=0.002,
+                        resize_method="pil", device="cuda")
+  if engine.config.resize_method != "pil":
+    fail(f"unexpected resize method {engine.config.resize_method}")
+  state = engine.init(seed=3)
+  kernels.reset_counts()
+  state = engine.run(state, 20)
+  torch.cuda.synchronize()
+  if state.telemetry.learn_steps == 0:
+    fail("PIL_MAIN took no learn step in 20 supersteps")
+  before = kernels.counts()
+  t0 = time.perf_counter()
+  state = engine.run(state, 20)
+  torch.cuda.synchronize()
+  t_run = time.perf_counter() - t0
+  counts = kernels.counts()
+  per = {k: (counts[k] - before[k]) / 20 for k in counts
+         if k in PATH_KERNELS["dqn"]}
+  want = {"gather_windows": 1, "pooled_frame_to_84": 0, "dqn_torso_fwd": 2,
+          "dqn_torso_fwd_residuals": 1}
+  if per != want:
+    fail(f"launches per PIL_MAIN learning superstep {per}, expected {want}")
+  m = engine.metrics(state)
+  if m.learn_steps < 20 or not math.isfinite(m.last_loss):
+    fail(f"PIL_MAIN: {m.learn_steps} learn steps, loss {m.last_loss}")
+  if counts["pooled_frame_to_84"]:
+    fail("PIL_MAIN launched K2")
+  print("PIL_MAIN " + json.dumps(dict(
+      supersteps=40, learn_steps=m.learn_steps, last_loss=m.last_loss,
+      launches_per_learning_superstep=per, train_launches=counts,
+      ms_per_learning_superstep=1e3 * t_run / 20,
+      training_env_steps_per_s=20 * 128 / t_run, card=card())),
+      flush=True)
+  return counts
 
 
 def phase_seaquest_path(dev, name: str):
@@ -1726,12 +1887,18 @@ def main() -> int:
 
   checks = phase_kernels(dev)
   check_seaquest(dev)
+  check_games(dev)
+  check_pil(dev)
   # Each engine holds a 7 GB frame store: one path's state is dropped
   # before the next is built.
   path_counts = {}
   for path, phase in (("dqn", phase_main_path),
                       ("prioritized", phase_per_path),
                       ("rainbow", phase_rainbow_path),
+                      ("rainbow_breakout", lambda d: phase_rainbow_path(
+                          d, "breakout", timed=40, fenced=20,
+                          eval_supersteps=100)),
+                      ("pil", phase_pil_path),
                       ("c51", lambda d: phase_seaquest_path(d, "c51")),
                       ("qrdqn", lambda d: phase_seaquest_path(d, "qrdqn")),
                       ("iqn", phase_iqn_path),

@@ -75,8 +75,6 @@ class EngineConfig:
     if self.num_actions:
       raise NotImplementedError("the host env (num_actions) is not ported "
                                 "yet.")
-    if self.resize_method == "pil":
-      raise NotImplementedError("resize_method='pil' is not ported yet.")
     if self.agent.compute_dtype != "float32":
       raise NotImplementedError("the port computes in float32 only.")
 

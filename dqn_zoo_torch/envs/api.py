@@ -80,7 +80,10 @@ def register_game(game: Game) -> Game:
 
 
 def get_game(name: str) -> Game:
-  from dqn_zoo_torch.envs.games import catch, pong, seaquest  # noqa: F401
+  from dqn_zoo_torch.envs.games import (asterix, atlantis,  # noqa: F401
+                                        breakout, catch, freeway,
+                                        pong, seaquest, skiing,
+                                        space_invaders)
   if name not in _REGISTRY:
     raise KeyError(f"Game {name!r} is not ported yet; have "
                    f"{sorted(_REGISTRY)}.")

@@ -2,7 +2,9 @@
 
 `rgb_to_y`, `resize_bilinear` and `pooled_frame_to_84_plain` are the plain
 PyTorch versions of kernel K2 (prep/cuda_prep.py); `pooled_frame_to_84`
-dispatches on the frames' device.
+dispatches on the resize method and on the frames' device. The `pil` method
+is max, `rgb_to_y_fused` and Pillow's exact resample (prep/pil_resize.py),
+on any device and without K2, as the JAX package's is.
 """
 
 from __future__ import annotations
@@ -49,6 +51,20 @@ def rgb_to_y(frames: torch.Tensor) -> torch.Tensor:
   return torch.clamp(y, max=255.0).to(torch.uint8)
 
 
+def rgb_to_y_fused(frames: torch.Tensor) -> torch.Tensor:
+  """rgb_to_y as XLA compiles the JAX package's on the CPU: its dot fuses
+  each product into the running sum, fma(b, w2, fma(g, w1, r w0)), each
+  rounded once to f32 (envs.f32.fma). The `pil` path takes it, so that its
+  observations are the JAX package's bit for bit; the separate roundings of
+  `rgb_to_y`, which K2 shares, move ~1 pixel in 20,000 of random frames by
+  one level."""
+  from dqn_zoo_torch.envs.f32 import fma
+  f = frames.to(torch.float32)
+  w0, w1, w2 = RGB2Y_WEIGHTS
+  y = fma(f[..., 2], w2, fma(f[..., 1], w1, fma(f[..., 0], w0, 0.0)))
+  return torch.clamp(y, max=255.0).to(torch.uint8)
+
+
 def resize_bilinear(images: torch.Tensor) -> torch.Tensor:
   """uint8 (..., H, W) → uint8 (..., 84, 84), antialiased bilinear.
 
@@ -71,11 +87,13 @@ def pooled_frame_to_84(frame_penult: torch.Tensor, frame_last: torch.Tensor,
                        resize_method: str = "fast") -> torch.Tensor:
   """The 84×84 observation of an action-repeat group's two last frames.
 
-  Either frame may be all zero (episode-boundary padding). On CUDA tensors
-  this is kernel K2; on CPU tensors its plain version."""
+  Either frame may be all zero (episode-boundary padding). `fast`: on CUDA
+  tensors kernel K2, on CPU tensors its plain version. `pil`: the reference
+  pipeline bit for bit, Pillow's resample of the fused luma."""
   if resize_method == "pil":
-    raise NotImplementedError(
-        "resize_method='pil' is not ported yet; use 'fast'.")
+    from dqn_zoo_torch.prep.pil_resize import resize_pil_exact
+    return resize_pil_exact(rgb_to_y_fused(torch.maximum(frame_penult,
+                                                         frame_last)))
   if resize_method != "fast":
     raise ValueError(f"Unknown resize_method {resize_method!r}.")
   from dqn_zoo_torch.prep import cuda_prep

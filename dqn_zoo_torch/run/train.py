@@ -5,10 +5,12 @@ Usage: python -m dqn_zoo_torch.run.train --agent=dqn --environment_name=pong
 The reference's run protocol: iterations of (train phase, eval phase),
 iteration 0 eval-only, one CSV row and one log line per iteration with the
 reference's 13 fields plus `eval_frames`. Flag names are the JAX CLI's;
-flags of parts not ported yet (the PIL resize, multi-device) raise when
-set. Agents: dqn, double_q, prioritized, iqn, rainbow, c51 and qrdqn (each
-also has its runner, `python -m dqn_zoo_torch.run.agents.<agent>`). Games:
-pong, catch and seaquest. Runs on CUDA unless --device=cpu.
+flags of parts not ported yet (multi-device, bfloat16) raise when set.
+Agents: dqn, double_q, prioritized, iqn, rainbow, c51 and qrdqn (each also
+has its runner, `python -m dqn_zoo_torch.run.agents.<agent>`). Games: pong,
+catch, seaquest, breakout, space_invaders, freeway, asterix, atlantis and
+skiing. --resize_method=pil is the reference's exact Pillow resize. Runs on
+CUDA unless --device=cpu.
 
 Checkpoint/resume as the JAX CLI has it: --checkpoint_path keeps one slot
 of the full state (run/checkpoint.py); a run that finds it resumes there,

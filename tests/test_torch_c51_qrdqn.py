@@ -17,7 +17,7 @@ import torch
 
 from test_torch_rainbow import _batch, _categorical_inputs, _tree_keys
 from test_torch_seaquest import jax_seaquest_env_draws
-from test_torch_seaquest import one_torch_thread  # noqa: F401 (autouse)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_slice import _assert_u8_close
 
 from dqn_zoo_tpu import ops as jops

@@ -20,6 +20,7 @@ from dqn_zoo_torch import convert
 from dqn_zoo_torch.envs.api import get_game
 from dqn_zoo_torch.envs.games.catch import CatchInitDraws
 from dqn_zoo_torch.envs.vector import EnvDraws, VectorAtariEnv
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _catch_draws(env_key, max_noops):

@@ -30,6 +30,7 @@ from dqn_zoo_torch.engine.superstep import leaves
 from dqn_zoo_torch.run import checkpoint as ckpt
 from dqn_zoo_torch.run import train as ttrain
 from dqn_zoo_torch.run.writers import CsvWriter
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 _ITERATIONS = 2
 _BASE = ["--device=cpu", "--environment_name=pong", "--num_envs=2",

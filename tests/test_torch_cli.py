@@ -8,6 +8,7 @@ from absl.testing import flagsaver
 
 from dqn_zoo_tpu.run import train as jtrain
 from dqn_zoo_torch.run import train as ttrain
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 _CASES = [
     # A reference iqn command line: the five iqn flags.

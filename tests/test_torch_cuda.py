@@ -540,3 +540,106 @@ def test_seaquest_on_the_card_matches_the_cpu(dev):
     for a, w in zip(card_out + card_state.game_state,
                     cpu_out + cpu_state.game_state):
       assert torch.equal(a.cpu(), w)
+
+
+@pytest.mark.parametrize("name", ["breakout", "space_invaders", "freeway",
+                                  "asterix", "atlantis", "skiing"])
+def test_game_on_the_card_matches_the_cpu(dev, name):
+  """Each game ported beside seaquest, at B=16 for 24 groups under a
+  48-frame episode cap (resets within the run), on the card and on the CPU
+  from the same draws and actions: every output, frames included, and
+  every state field bit for bit."""
+  from dqn_zoo_torch.envs.api import get_game
+  from dqn_zoo_torch.envs.vector import VectorAtariEnv, VectorEnvConfig
+
+  def to(tree, d):
+    if tree is None or isinstance(tree, torch.Tensor):
+      return None if tree is None else tree.to(d)
+    return type(tree)(*(to(x, d) for x in tree))
+
+  b = 16
+  game = get_game(name)
+  cfg = VectorEnvConfig(episode_frame_cap=48)
+  cpu_env = VectorAtariEnv(game, b, cfg, device="cpu")
+  card_env = VectorAtariEnv(game, b, cfg, device=dev)
+  gen = torch.Generator().manual_seed(4)
+  cpu_state = cpu_env.init(gen)
+  card_state = to(cpu_state, dev)
+  for _ in range(24):
+    draws = cpu_env.draws(gen)
+    actions = torch.randint(0, game.num_actions, (b,), generator=gen)
+    cpu_state, cpu_out = cpu_env.step(cpu_state, actions, draws)
+    card_state, card_out = card_env.step(card_state, actions.to(dev),
+                                         to(draws, dev))
+    for a, w in zip(card_out + card_state.game_state,
+                    cpu_out + cpu_state.game_state):
+      assert torch.equal(a.cpu(), w)
+
+
+def test_pil_preprocessing_on_the_card_matches_the_cpu(dev):
+  """`pil` (max, fused luma, the exact resize in float64 products) on
+  random frames, card against CPU, bit for bit."""
+  rng = np.random.RandomState(8)
+  f1, f2 = (torch.from_numpy(rng.randint(0, 256, (8, 210, 160, 3),
+                                         np.uint8)) for _ in range(2))
+  want = tprep.pooled_frame_to_84(f1, f2, "pil")
+  got = tprep.pooled_frame_to_84(f1.to(dev), f2.to(dev), "pil")
+  assert torch.equal(got.cpu(), want)
+
+
+def _near(gen, edges, n, ulps=3):
+  """n f32 values within `ulps` ulps of values drawn from `edges`."""
+  edges = torch.tensor(edges, dtype=torch.float32)
+  x = edges[torch.randint(0, len(edges), (n,), generator=gen)]
+  up, down = torch.tensor(1e9), torch.tensor(-1e9)
+  for _ in range(ulps):
+    step = torch.randint(-1, 2, (n,), generator=gen)
+    x = torch.where(step > 0, torch.nextafter(x, up),
+                    torch.where(step < 0, torch.nextafter(x, down), x))
+  return x
+
+
+@pytest.mark.parametrize("name", ["breakout", "space_invaders"])
+def test_game_steps_at_grid_edges_on_the_card_match_the_cpu(dev, name):
+  """One raw frame of 4,096 states whose ball sits within 3 ulps of the
+  brick grid's edges, or whose shot sits within 3 ulps of an alien row's
+  edge and inside a column (the floors of reciprocal products), on
+  the card and on the CPU: reward, done, life loss and the new state bit
+  for bit, and bricks or aliens hit on both."""
+  from dqn_zoo_torch.envs.api import get_game
+  from dqn_zoo_torch.envs.games import breakout as bo
+  from dqn_zoo_torch.envs.games import space_invaders as si
+
+  n = 4096
+  game = get_game(name)
+  gen = torch.Generator().manual_seed(6)
+  state = game.init(game.init_draws(gen, n, "cpu"))
+  zero = torch.zeros(n)
+  if name == "breakout":
+    state = state._replace(
+        ball_dead=torch.zeros(n, dtype=torch.bool), ball_vx=zero,
+        ball_vy=zero,
+        ball_y=_near(gen, [56.0 + 6.0 * k for k in range(-1, 8)], n),
+        ball_x=_near(gen, [7.0 + 8.0 * k for k in range(-1, 20)], n),
+        bricks=torch.rand(n, bo.ROWS, bo.COLS, generator=gen) < 0.7)
+    draws = game.step_draws(gen, n, "cpu")
+  else:
+    gx = 20.0 + 40.0 * torch.rand(n, generator=gen)
+    gy = 40.0 + 40.0 * torch.rand(n, generator=gen)
+    state = state._replace(
+        aliens=torch.rand(n, si.ROWS, si.COLS, generator=gen) < 0.7,
+        grid_x=gx, grid_y=gy, shot_live=torch.ones(n, dtype=torch.bool),
+        shot_x=gx + 16.0 * torch.randint(-1, 7, (n,), generator=gen)
+        + 2.0 + 8.0 * torch.rand(n, generator=gen),
+        shot_y=gy + si.SHOT_SPEED + _near(
+            gen, [14.0 * k for k in range(-1, 7)], n),
+        wave=torch.randint(0, 10, (n,), generator=gen, dtype=torch.int32))
+    draws = type(game.step_draws(gen, n, "cpu", 1))(
+        *(x[0] for x in game.step_draws(gen, n, "cpu", 1)))
+  actions = torch.randint(0, game.num_actions, (n,), generator=gen)
+  want = game.step(state, actions, draws)
+  got = game.step(type(state)(*(x.to(dev) for x in state)), actions.to(dev),
+                  type(draws)(*(x.to(dev) for x in draws)))
+  for a, w in zip(got[1:] + tuple(got[0]), want[1:] + tuple(want[0])):
+    assert torch.equal(a.cpu(), w)
+  assert int((want[1] > 0).sum()) > 100

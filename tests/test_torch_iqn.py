@@ -36,6 +36,7 @@ from dqn_zoo_torch.engine.superstep import leaves
 from dqn_zoo_torch.envs.vector import VectorEnvConfig
 from dqn_zoo_torch.nets import iqn_head as thead
 from dqn_zoo_torch.run import train as ttrain
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 D, H, L = 3136, 512, 64  # the published IQN widths
 ORDER = ("we", "be", "wh", "bh", "wo", "bo", "cos_emb", "s_emb")

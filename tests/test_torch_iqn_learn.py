@@ -31,6 +31,7 @@ from dqn_zoo_torch.engine.superstep import leaves
 from dqn_zoo_torch.nets import iqn_head as thead
 from dqn_zoo_torch.replay.device_replay import TransitionBatch
 from dqn_zoo_torch.run import train as ttrain
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BWD_OUTPUTS = ("dwh", "dbh", "dwe", "dbe", "ds_emb", "dcos")
 

@@ -21,6 +21,7 @@ from dqn_zoo_torch.nets import iqn_head
 from dqn_zoo_torch.prep import atari as tprep
 from dqn_zoo_torch.prep import cuda_prep
 from dqn_zoo_torch.replay import window_gather as twg
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 D = 3136
 CHUNKS = D // iqn_head.D_MULTIPLE

@@ -19,6 +19,7 @@ from dqn_zoo_torch.nets import torso_cuda
 from dqn_zoo_torch.prep import atari as tprep
 from dqn_zoo_torch.prep import cuda_prep
 from dqn_zoo_torch.replay import window_gather as twg
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 # --- K1: window gather (exact) ----------------------------------------------
@@ -96,12 +97,6 @@ def test_k2_rgb_to_y_matches_jax():
   got = tprep.rgb_to_y(torch.from_numpy(f)).numpy().astype(int)
   # Luma truncates: a last-bit difference at an integer edge moves it by 1.
   assert np.abs(got - want).max() <= 1 and (got == want).mean() > 0.999
-
-
-def test_pil_resize_is_not_ported_yet():
-  z = torch.zeros((1, 210, 160, 3), dtype=torch.uint8)
-  with pytest.raises(NotImplementedError):
-    tprep.pooled_frame_to_84(z, z, "pil")
 
 
 # --- K3: DQN torso forward and gradients ----------------------------------------

@@ -21,6 +21,7 @@ from dqn_zoo_torch.agents import get_agent, make_optimizer
 from dqn_zoo_torch.engine.superstep import leaves
 from dqn_zoo_torch.replay.device_replay import TransitionBatch
 from dqn_zoo_torch.utils.schedules import linear_schedule
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_linear_schedule_matches_jax():

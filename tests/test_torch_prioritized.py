@@ -42,6 +42,7 @@ from dqn_zoo_torch.engine.superstep import leaves
 from dqn_zoo_torch.replay import device_replay as tdr
 from dqn_zoo_torch.replay.device_replay import TransitionBatch
 from dqn_zoo_torch.run.agents import run_agent
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _jax_params(name, seed, num_actions=6):

@@ -41,6 +41,7 @@ from dqn_zoo_torch.engine.superstep import leaves
 from dqn_zoo_torch.nets import core
 from dqn_zoo_torch.replay.device_replay import TransitionBatch
 from dqn_zoo_torch.run.agents import run_agent
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 _t = lambda x: torch.from_numpy(np.array(x))
 
@@ -372,10 +373,12 @@ def _engines():
           Engine(EngineConfig(agent=tspec, **common), device="cpu"))
 
 
-def jax_rainbow_draws(jeng, jstate) -> SuperstepDraws:
+def jax_rainbow_draws(jeng, jstate,
+                      env_draws=jax_catch_env_draws) -> SuperstepDraws:
   """The draws JAX's Engine.superstep makes from jstate.rng for rainbow:
   greedy_noisy_act's noise and ε draws, each SGD step's replay streams
-  and rainbow_loss's three noise sets."""
+  and rainbow_loss's three noise sets; `env_draws(env state)` gives the
+  game's."""
   cfg = jeng.config
   a, atoms = jeng.game.num_actions, jeng.spec.num_atoms
   _, act_key, learn_key = jax.random.split(jstate.rng, 3)
@@ -394,7 +397,7 @@ def jax_rainbow_draws(jeng, jstate) -> SuperstepDraws:
   return SuperstepDraws(
       _t(jax.random.uniform(explore_key, (b,))),
       _t(jax.random.randint(uniform_key, (b,), 0, a)),
-      _t(np.stack(sample_u)), jax_catch_env_draws(jstate.env),
+      _t(np.stack(sample_u)), env_draws(jstate.env),
       act_noise=jax_noise(apply_key, a, atoms), loss_noise=stacked)
 
 

@@ -15,6 +15,7 @@ from dqn_zoo_tpu.replay import fanout_tree as jft
 from dqn_zoo_torch import convert
 from dqn_zoo_torch.replay import device_replay as tdr
 from dqn_zoo_torch.replay import fanout_tree as tft
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_fanout_tree_set_query_match_jax():

@@ -13,6 +13,7 @@ import torch
 from dqn_zoo_tpu.run import train as jtrain
 from dqn_zoo_torch.run import train as ttrain
 from dqn_zoo_torch.run.writers import CsvWriter
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -52,7 +53,7 @@ def test_cli_runs_the_iteration_protocol_on_cpu(tmp_path):
   assert int(rows[1]["eval_frames"]) > 0
 
 
-@pytest.mark.parametrize("flag", ["--mesh_devices=2", "--resize_method=pil"])
+@pytest.mark.parametrize("flag", ["--mesh_devices=2"])
 def test_cli_flags_not_ported_yet_raise(flag):
   with pytest.raises(NotImplementedError):
     ttrain.main(["--device=cpu", "--num_envs=2", "--replay_capacity=64",

@@ -13,7 +13,6 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from dqn_zoo_tpu.envs.api import get_game as jget_game
@@ -24,18 +23,8 @@ from dqn_zoo_torch.envs.api import get_game
 from dqn_zoo_torch.envs.games import seaquest as sq
 from dqn_zoo_torch.envs.vector import EnvDraws, VectorAtariEnv
 from dqn_zoo_torch.envs.vector import VectorEnvConfig
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-  """Torch on one intra-op thread while each test runs: its ops are small,
-  and with several test processes at once, torch's threads in each of them
-  thrash the cores (this file took 21 s alone, 527 s beside five other
-  test processes)."""
-  n = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(n)
+from torch_games_jax import life_losses_zero_discount, step_sweep
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _spawn_uniforms(key, frames):
@@ -139,27 +128,9 @@ def test_seaquest_shooting_scores():
 
 
 def test_seaquest_life_loss_zero_discount():
-  b = 8
-  env, gen, state = _env(b, 6)
-  rng = np.random.RandomState(6)
-  lives, disc, firsts = [], [], []
-  for _ in range(120):
-    a = torch.from_numpy(rng.randint(0, 18, b)).long()
-    state, out = env.step(state, a, env.draws(gen))
-    lives.append(out.lives.numpy())
-    disc.append(out.discount_prod.numpy())
-    firsts.append(out.is_first.numpy())
-  lives, disc, firsts = map(np.stack, (lives, disc, firsts))
-  found = 0
-  for e in range(b):
-    for t in range(1, len(lives)):
-      if firsts[t, e] or firsts[t - 1, e]:
-        continue
-      if lives[t, e] < lives[t - 1, e] and lives[t, e] > 0:
-        assert disc[t, e] == 0.0
-        found += 1
   # Random play bobs at the surface and loses lives within a few steps.
-  assert found > 0, "no life losses observed in 120 steps of random play"
+  assert life_losses_zero_discount("seaquest", 8, 120, 6) > 0, \
+      "no life losses observed in 120 steps of random play"
 
 
 def test_seaquest_oxygen_and_surfacing_rules():
@@ -191,3 +162,19 @@ def test_seaquest_oxygen_and_surfacing_rules():
   _, _, _, life_lost = sq.seaquest_step(state_empty, torch.tensor([2]),
                                         draws)
   assert bool(life_lost)
+
+
+def test_seaquest_step_on_hand_made_states_matches_jax():
+  """One raw frame of 1,024 states at levels 0-11 (the sharks' speed, one
+  multiply-add as XLA compiles it) and every oxygen level (the bar's end,
+  a product with 1/6 fused into its sum) through JAX's vmapped step and the
+  port's: every output and state field exact, the frames too."""
+  def edit(s, rng):
+    n = s.level.shape[0]
+    return s._replace(
+        level=jnp.asarray(rng.randint(0, 12, n), jnp.int32),
+        oxygen=jnp.asarray(rng.randint(0, 361, n), jnp.float32),
+        enemy_x=jnp.asarray(rng.uniform(-20.0, 170.0, (n, sq.NUM_LANES)),
+                            jnp.float32))
+
+  step_sweep("seaquest", edit)

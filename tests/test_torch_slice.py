@@ -29,6 +29,7 @@ from dqn_zoo_torch.engine import Engine, EngineConfig, SuperstepDraws
 from dqn_zoo_torch.engine.superstep import leaves
 from dqn_zoo_torch.envs.games.pong import PongInitDraws, PongStepDraws
 from dqn_zoo_torch.envs.vector import EnvDraws, VectorEnvConfig
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _pong_draws(env_key, game_key, max_noops):
@@ -236,6 +237,6 @@ def test_modes_not_ported_yet_raise():
   spec = get_agent("dqn")
   base = dict(agent=spec, game="pong", num_envs=2, slots_per_stream=16)
   for extra in (dict(overlap_env_learn=True), dict(pmap_axis="d"),
-                dict(num_actions=6), dict(resize_method="pil")):
+                dict(num_actions=6)):
     with pytest.raises(NotImplementedError):
       EngineConfig(**base, **extra)

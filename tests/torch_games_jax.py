@@ -1,0 +1,298 @@
+"""The JAX package's draws for the port's games, and a step-for-step check of
+the port's vector env against JAX's (CPU), for the test files of the games.
+
+JAX splits a game's key at init and, for some games, on every raw frame;
+`jax_env_draws` repeats those splits on the JAX state before a step and
+hands the port exactly the values JAX is about to draw: the reset's noop
+count, init and burn draws from the env key, the group's draws from the
+game state's key. A game with `per_frame_draws` gets a leading frame axis
+(30 for the burn, 4 for the group), the others one set that serves every
+frame.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from dqn_zoo_tpu.envs.api import get_game as jget_game
+from dqn_zoo_tpu.envs.vector import VectorAtariEnv as JVectorEnv
+from dqn_zoo_tpu.envs.vector import VectorEnvConfig as JEnvConfig
+from dqn_zoo_torch import convert
+from dqn_zoo_torch.envs.api import get_game
+from dqn_zoo_torch.envs.games import asterix, atlantis, breakout, freeway
+from dqn_zoo_torch.envs.games import seaquest, skiing, space_invaders
+from dqn_zoo_torch.envs.vector import EnvDraws, VectorAtariEnv
+from dqn_zoo_torch.envs.vector import VectorEnvConfig
+
+split = jax.random.split
+uniform = jax.random.uniform
+
+
+def _frames(key, frames, draw):
+  """`draw` of `frames` raw frames stepped from game key `key`, each frame
+  splitting the key in three and drawing from the second and third parts."""
+  out = []
+  for _ in range(frames):
+    key, k1, k2 = split(key, 3)
+    out.append(draw(k1, k2))
+  return jax.tree.map(lambda *x: jnp.stack(x), *out)
+
+
+# Per game: init(k_init) -> (init draws, key after init) and
+# step(key, frames) -> step draws of `frames` raw frames (None: one set).
+def _breakout_init(k):
+  key, k1 = split(k)
+  return (uniform(k1, (), minval=8.0, maxval=152.0 - breakout.PADDLE_W),), key
+
+
+def _breakout_step(key, frames):
+  del frames  # one set a group: a serve advances the key, at most once
+  _, k1, k2 = split(key, 3)
+  return (jax.random.bernoulli(k1),
+          uniform(k2, (), minval=12.0, maxval=148.0 - breakout.BALL))
+
+
+def _invaders_init(k):
+  key, k1 = split(k)
+  return (uniform(k1, (), minval=space_invaders.LEFT_WALL,
+                  maxval=space_invaders.RIGHT_WALL
+                  - space_invaders.PLAYER_W),), key
+
+
+def _invaders_step(key, frames):
+  n = space_invaders.NUM_BOMBS
+  return _frames(key, frames, lambda k1, k2: (
+      jax.random.randint(k1, (n,), 0, space_invaders.COLS),
+      uniform(k2, (n,))))
+
+
+def _freeway_init(k):
+  key, k1 = split(k)
+  return (uniform(k1, (freeway.NUM_LANES,), minval=0.0, maxval=160.0),), key
+
+
+def _asterix_init(k):
+  key, kx, kl = split(k, 3)
+  n = asterix.NUM_LANES
+  return (uniform(kx, (n,), minval=asterix.LEFT_WALL,
+                  maxval=asterix.RIGHT_WALL - asterix.OBJ_W),
+          uniform(kl, (n,))), key
+
+
+def _asterix_step(key, frames):
+  n = asterix.NUM_LANES
+  return _frames(key, frames, lambda k1, k2: (uniform(k1, (n,)),
+                                              uniform(k2, (n,))))
+
+
+def _atlantis_init(k):
+  key, kd = split(k)
+  return (jax.random.bernoulli(kd, 0.5, (atlantis.NUM_BANDS,)),), key
+
+
+def _atlantis_step(key, frames):
+  n = atlantis.NUM_BANDS
+  return _frames(key, frames, lambda k1, k2: (
+      uniform(k1, (n,)), jax.random.bernoulli(k2, 0.5, (n,))))
+
+
+def _skiing_init(k):
+  key, kg = split(k)
+  return (uniform(kg, (skiing.NUM_GATES,), minval=skiing.SKIER_X_MIN + 20.0,
+                  maxval=skiing.SKIER_X_MAX - 20.0),), key
+
+
+def _seaquest_init(k):
+  key, k_e, k_d = split(k, 3)
+  n = seaquest.NUM_LANES
+  return (uniform(k_e, (n,), minval=8.0, maxval=140.0),
+          uniform(k_d, (n,))), key
+
+
+def _seaquest_step(key, frames):
+  return _frames(key, frames,
+                 lambda k1, k2: (uniform(k1, (seaquest.NUM_LANES,)),))
+
+
+# name: (init, step or None, init draws class, step draws class or None)
+GAMES = {
+    "seaquest": (_seaquest_init, _seaquest_step, seaquest.SeaquestInitDraws,
+                 seaquest.SeaquestStepDraws),
+    "breakout": (_breakout_init, _breakout_step, breakout.BreakoutInitDraws,
+                 breakout.BreakoutStepDraws),
+    "space_invaders": (_invaders_init, _invaders_step,
+                       space_invaders.SpaceInvadersInitDraws,
+                       space_invaders.SpaceInvadersStepDraws),
+    "freeway": (_freeway_init, None, freeway.FreewayInitDraws, None),
+    "asterix": (_asterix_init, _asterix_step, asterix.AsterixInitDraws,
+                asterix.AsterixStepDraws),
+    "atlantis": (_atlantis_init, _atlantis_step, atlantis.AtlantisInitDraws,
+                 atlantis.AtlantisStepDraws),
+    "skiing": (_skiing_init, None, skiing.SkiingInitDraws, None),
+}
+
+
+def _one_env(name, env_key, game_key, max_noops, repeat):
+  init, step, _, _ = GAMES[name]
+  _, k_init, k_noops = split(env_key, 3)
+  noops = jax.random.randint(k_noops, (), 1, max_noops + 1)
+  init_draws, key = init(k_init)
+  if step is None:
+    return noops, init_draws, (), ()
+  return noops, init_draws, step(key, max_noops), step(game_key, repeat)
+
+
+@functools.partial(jax.jit, static_argnums=(0, 3, 4))
+def _draws_jit(name, env_keys, game_keys, max_noops, repeat):
+  return jax.vmap(lambda a, b: _one_env(name, a, b, max_noops, repeat))(
+      env_keys, game_keys)
+
+
+def jax_env_draws(name, env_state, max_noops=30, repeat=4) -> EnvDraws:
+  """The draws JAX's vector env makes in its next step, as the port's
+  VectorAtariEnv.draws lays them out."""
+  _, _, init_cls, step_cls = GAMES[name]
+  t = lambda x: torch.from_numpy(np.array(x))
+  noops, init, burn, step = _draws_jit(name, env_state.rng,
+                                       env_state.game_state.key, max_noops,
+                                       repeat)
+  if step_cls is None:
+    burn = step = None
+  elif get_game(name).per_frame_draws:  # (B, frames, ...) -> (frames, B, ...)
+    burn = step_cls(*(t(x).transpose(0, 1) for x in burn))
+    step = step_cls(*(t(x).transpose(0, 1) for x in step))
+  else:
+    burn, step = step_cls(*map(t, burn)), step_cls(*map(t, step))
+  return EnvDraws(noops=t(noops), init=init_cls(*map(t, init)), burn=burn,
+                  step=step)
+
+
+def run_against_jax(name, b, groups, policy, cap=None, seed=3, prepare=None,
+                    on_step=None):
+  """Steps JAX's vector env and the port's side by side for `groups`
+  groups from one JAX state carried across by convert, with the port given
+  JAX's draws and `policy(step, port state) -> (B,) int actions`; requires
+  every output and every state field exact, frames included (tolerance:
+  none). `prepare(JAX game state) -> game state` edits the states the first
+  group's resets made (to bring an episode's end within reach), and both
+  sides go on from the edited one. `on_step(port state before, port state
+  after, output)` sees each group. Returns the FIRST groups emitted."""
+  cfg = {} if cap is None else dict(episode_frame_cap=cap)
+  jenv = JVectorEnv(jget_game(name), b, JEnvConfig(**cfg))
+  jstate = jenv.init(jax.random.PRNGKey(seed))
+  game = get_game(name)
+  tenv = VectorAtariEnv(game, b, VectorEnvConfig(**cfg), "cpu")
+  jstep = jax.jit(jenv.step)
+  eng = type("E", (), {"game": game})
+  tstate = convert.env_state_from_jax(eng, jax.device_get(jstate), "cpu")
+  firsts = 0
+  for step in range(groups):
+    actions = np.asarray(policy(step, tstate), np.int32)
+    draws = jax_env_draws(name, jax.device_get(jstate))
+    jstate, jout = jstep(jstate, jnp.asarray(actions))
+    before = tstate
+    tstate, tout = tenv.step(tstate, torch.from_numpy(actions).long(), draws)
+    for field, a, w in zip(jout._fields, tout, jout):
+      np.testing.assert_array_equal(a.numpy(), np.asarray(w),
+                                    err_msg=f"{name}: {field} at {step}")
+    ref = convert.env_state_from_jax(eng, jax.device_get(jstate), "cpu")
+    for field, a, w in zip(ref.game_state._fields, tstate.game_state,
+                           ref.game_state):
+      assert a.dtype == w.dtype and torch.equal(a, w), (name, field, step)
+    assert torch.equal(tstate.episode_frames, ref.episode_frames)
+    assert torch.equal(tstate.needs_reset, ref.needs_reset)
+    firsts += int(tout.is_first.sum())
+    if on_step is not None:
+      on_step(before, tstate, tout)
+    if step == 0 and prepare is not None:
+      jstate = jstate._replace(game_state=prepare(jstate.game_state))
+      tstate = convert.env_state_from_jax(eng, jax.device_get(jstate), "cpu")
+  return firsts
+
+
+def random_policy(name, b, seed=0):
+  """Uniform actions from a seeded numpy stream."""
+  rng = np.random.RandomState(seed)
+  n = get_game(name).num_actions
+  return lambda step, state: rng.randint(0, n, b)
+
+
+def life_losses_zero_discount(name, b, steps, seed, policy=None):
+  """Rolls the port's vector env for `steps` groups (random actions unless
+  `policy` is given) and checks tests/test_envs.py's rule: a life lost
+  mid-episode zeroes the group's discount. Returns the life losses seen."""
+  env = VectorAtariEnv(get_game(name), b, device="cpu")
+  gen = torch.Generator().manual_seed(seed)
+  state = env.init(gen)
+  policy = policy or random_policy(name, b, seed)
+  lives, disc, firsts = [], [], []
+  for step in range(steps):
+    a = torch.from_numpy(np.asarray(policy(step, state))).long()
+    state, out = env.step(state, a, env.draws(gen))
+    lives.append(out.lives.numpy())
+    disc.append(out.discount_prod.numpy())
+    firsts.append(out.is_first.numpy())
+  lives, disc, firsts = map(np.stack, (lives, disc, firsts))
+  found = 0
+  for e in range(b):
+    for t in range(1, steps):
+      if firsts[t, e] or firsts[t - 1, e]:
+        continue
+      if lives[t, e] < lives[t - 1, e] and lives[t, e] > 0:
+        assert disc[t, e] == 0.0, (name, t, e)
+        found += 1
+  return found
+
+
+def near(rng, edges, n, ulps=2):
+  """n f32 values within `ulps` ulps of values drawn from `edges`."""
+  x = np.asarray(edges, np.float32)[rng.randint(0, len(edges), n)]
+  for _ in range(ulps):
+    step = rng.randint(-1, 2, n)
+    x = np.where(step > 0, np.nextafter(x, np.float32(np.inf)),
+                 np.where(step < 0, np.nextafter(x, np.float32(-np.inf)), x))
+  return x.astype(np.float32)
+
+
+def step_sweep(name, edit, n=1024, renders=32, seed=0):
+  """One raw frame of the game's step function on n states that `edit(JAX
+  states, numpy rng)` sets near the edges of its tests, JAX's (vmapped and
+  jitted, as the vector env compiles it) against the port's: the reward,
+  done, life-loss and every state field exact; then the first `renders`
+  frames of the new states, exact."""
+  jgame, game = jget_game(name), get_game(name)
+  rng = np.random.RandomState(seed)
+  jstates = jax.vmap(jgame.init)(jax.random.split(jax.random.PRNGKey(seed),
+                                                   n))
+  jstates = edit(jstates, rng)
+  actions = rng.randint(0, game.num_actions, n).astype(np.int32)
+  jnew, jr, jd, jl = jax.jit(jax.vmap(jgame.step))(jstates,
+                                                   jnp.asarray(actions))
+  _, step, _, step_cls = GAMES[name]
+  if step_cls is None:
+    draws = None
+  else:
+    d = jax.jit(jax.vmap(lambda k: step(k, 1)))(jstates.key)
+    t = lambda x: torch.from_numpy(np.array(x))
+    draws = step_cls(*((t(x)[:, 0] if game.per_frame_draws else t(x))
+                       for x in d))
+  cls = type(game.init(game.init_draws(torch.Generator(), 1, "cpu")))
+  tstates = convert.namedtuple_from_jax(cls, jax.device_get(jstates), "cpu")
+  tnew, tr, td, tl = game.step(tstates, torch.from_numpy(actions).long(),
+                               draws)
+  for what, a, w in (("reward", tr, jr), ("done", td, jd),
+                     ("life_lost", tl, jl)):
+    np.testing.assert_array_equal(a.numpy(), np.asarray(w),
+                                  err_msg=f"{name}: {what}")
+  ref = convert.namedtuple_from_jax(cls, jax.device_get(jnew), "cpu")
+  for field, a, w in zip(cls._fields, tnew, ref):
+    assert a.dtype == w.dtype and torch.equal(a, w), (name, field)
+  head = jax.tree.map(lambda x: x[:renders], jnew)
+  np.testing.assert_array_equal(
+      game.render(type(tnew)(*(x[:renders] for x in tnew))).numpy(),
+      np.asarray(jax.jit(jax.vmap(jgame.render))(head)),
+      err_msg=f"{name}: render")
+  return tnew, tr, td

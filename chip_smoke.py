@@ -14,7 +14,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      (per-frame diver spawns, noop burns) and actions, every output
      (frames, rewards, lives, ...) and state field required bit for bit;
      GAMES: the same for breakout, space_invaders, freeway, asterix,
-     atlantis and skiing, 32 groups each under a 48-frame episode cap (each
+     atlantis, skiing, assault, beam_rider, bowling, boxing, crazy_climber
+     and demon_attack, 32 groups each under a 48-frame episode cap (each
      runs its reset branch); PIL: the exact Pillow resize on the card
      reproduces the golden digest of tests/test_pil_resize.py, and 128
      pooled breakout frames give the same observations at `pil` on the card
@@ -52,6 +53,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      plain torso, the launches per learning superstep (K1 1, K2 1, K3a 2,
      K3b 1) and print the replay-less checkpoint's bytes against 64 MiB,
      the most a chain of training legs carries from one run to the next;
+     then DOUBLE_Q_MAIN, the same phase for build_engine("double_q",
+     "demon_attack", num_envs=128, replay_capacity=1e6): 6 actions, the
+     shared-bias DQN head, centred RMSProp, K3a three times a learning
+     superstep (act, target and the double-Q selector), the timed
+     supersteps that took the reset branch counted;
   5. drive the iqn path — build_engine("iqn", "pong", num_envs=128,
      replay_capacity=1e6) at the agent's own min fill: 120 acting and
      replay-filling supersteps, on past the min fill through >= 20 learn
@@ -136,6 +142,8 @@ PATH_KERNELS = {
             "dqn_torso_fwd_residuals"),
     "qrdqn": ("gather_windows", "pooled_frame_to_84", "dqn_torso_fwd",
               "dqn_torso_fwd_residuals"),
+    "double_q": ("gather_windows", "pooled_frame_to_84", "dqn_torso_fwd",
+                 "dqn_torso_fwd_residuals"),
     "rainbow_breakout": ("gather_windows", "pooled_frame_to_84",
                          "dqn_torso_fwd", "dqn_torso_fwd_residuals"),
     # The exact Pillow resize takes the place of K2's `fast` one.
@@ -143,7 +151,8 @@ PATH_KERNELS = {
 }
 # The games GAMES holds card against CPU, beside pong, catch and seaquest.
 NEW_GAMES = ("breakout", "space_invaders", "freeway", "asterix", "atlantis",
-             "skiing")
+             "skiing", "assault", "beam_rider", "bowling", "boxing",
+             "crazy_climber", "demon_attack")
 # tests/test_pil_resize.py's digest of Pillow's resize of RandomState(42)'s
 # (210, 160) image.
 GOLDEN_RESIZE_DIGEST = (
@@ -1289,16 +1298,19 @@ def phase_pil_path(dev):
   return counts
 
 
-def phase_seaquest_path(dev, name: str):
+def phase_learner_path(dev, name: str, game: str = "seaquest"):
   """The port's c51/seaquest or qrdqn/seaquest trainer (C51_MAIN,
-  QRDQN_MAIN) at the CLI defaults (128 envs, replay 1e6, throughput batch
-  1024, 18 actions; 51 atoms on ±10 or 201 quantiles; clip + Adam) through
-  the user's entry points, with MAIN's lowered min fill: 20 warm, 40 timed
-  and 20 fenced learning supersteps, then one eval chunk. Checks the loss,
-  the outputs against the plain torso and the launches per learning
-  superstep, prints the replay-less checkpoint's size against 64 MiB (the
-  most a chain of training legs carries between runs), and returns the
-  launch counts."""
+  QRDQN_MAIN: 18 actions, 51 atoms on ±10 or 201 quantiles, clip + Adam) or
+  its double_q/demon_attack trainer (DOUBLE_Q_MAIN: 6 actions, the
+  shared-bias DQN head, centred RMSProp) at the CLI defaults (128 envs,
+  replay 1e6, throughput batch 1024, uniform replay) through the user's
+  entry points, with MAIN's lowered min fill: 20 warm, 40 timed and 20
+  fenced learning supersteps, then one eval chunk. Checks the loss, the
+  outputs against the plain torso and the launches per learning superstep
+  (double_q's K3a three times: act, target and the double-Q selector),
+  prints the timed supersteps that took the reset branch and the
+  replay-less checkpoint's size against 64 MiB (the most a chain of
+  training legs carries between runs), and returns the launch counts."""
   import shutil
   from dqn_zoo_torch import kernels
   from dqn_zoo_torch.agents.base import ClipByGlobalNorm
@@ -1308,18 +1320,20 @@ def phase_seaquest_path(dev, name: str):
   from dqn_zoo_torch.run.train import build_engine, save_checkpoint
 
   tag = f"{name.upper()}_MAIN"
-  engine = build_engine(name, "seaquest", num_envs=128,
+  engine = build_engine(name, game, num_envs=128,
                         replay_capacity=1_000_000,
                         min_replay_capacity_fraction=0.002, device="cuda")
   cfg, spec = engine.config, engine.spec
   a = engine.game.num_actions
-  dist_shape = ((cfg.num_envs, a, 51) if name == "c51"
-                else (cfg.num_envs, 201, a))
+  dist_shape = {"c51": (cfg.num_envs, a, 51),
+                "qrdqn": (cfg.num_envs, 201, a)}.get(name)
   if (cfg.batch_size, cfg.learn_every, cfg.updates_per_learn) != (1024, 1, 1) \
-      or a != 18 or engine.rcfg.priority_exponent != 0.0 \
+      or a != {"seaquest": 18, "demon_attack": 6}[game] \
+      or engine.rcfg.priority_exponent != 0.0 \
       or (name == "c51" and (spec.num_atoms, spec.vmax) != (51, 10.0)) \
       or (name == "qrdqn" and spec.num_quantiles != 201) \
-      or not isinstance(engine.optimizer, ClipByGlobalNorm):
+      or isinstance(engine.optimizer, ClipByGlobalNorm) != (
+          dist_shape is not None):
     fail(f"unexpected {name} schedule {cfg} or spec {spec}")
   state = engine.init(seed=11)
   torch.cuda.synchronize()
@@ -1352,8 +1366,10 @@ def phase_seaquest_path(dev, name: str):
   per_learning_superstep = {
       k: (counts_after[k] - counts_before[k]) / timed for k in counts_after
       if k in PATH_KERNELS[name]}
-  # act and the target net on K3a, the online net on K3b.
-  want = {"gather_windows": 1, "pooled_frame_to_84": 1, "dqn_torso_fwd": 2,
+  # act and the target net on K3a (and double_q's selector, the online net
+  # on s_t), the online net under grad on K3b.
+  want = {"gather_windows": 1, "pooled_frame_to_84": 1,
+          "dqn_torso_fwd": 3 if name == "double_q" else 2,
           "dqn_torso_fwd_residuals": 1}
   if per_learning_superstep != want:
     fail(f"launches per {name} learning superstep {per_learning_superstep}, "
@@ -1376,12 +1392,14 @@ def phase_seaquest_path(dev, name: str):
     fail(f"{name}: {m.learn_steps} learn steps, losses {losses}")
   # Near the start: c51's cross-entropy begins at log 51 (near-uniform
   # logits) and stays below it plus a margin; qrdqn's quantile loss within
-  # a few times its first value.
+  # a few times its first value; double_q's squared TD error is positive.
   if name == "c51":
     near = abs(first_loss - math.log(51)) < 0.05 and \
         max(losses) < math.log(51) + 0.5
-  else:
+  elif name == "qrdqn":
     near = 0.0 < first_loss and max(losses) < 4.0 * first_loss + 1.0
+  else:
+    near = min(losses) >= 0.0 and max(losses) > 0.0
   if not near:
     fail(f"{name} loss left its start: first {first_loss}, then {losses}")
   for k in PATH_KERNELS[name]:
@@ -1402,8 +1420,12 @@ def phase_seaquest_path(dev, name: str):
         t["conv1"]["w"], t["conv1"]["b"], t["conv2"]["w"], t["conv2"]["b"],
         t["conv3"]["w"], t["conv3"]["b"], obs)
     plain_dist = atari.dqn_value_head(state.online_params["head"],
-                                      plain_torso).reshape(dist_shape)
-  dist = got.q_logits if name == "c51" else got.q_dist
+                                      plain_torso)
+  if dist_shape is None:  # double_q: the Q-values are the head's output
+    dist_shape, dist = (cfg.num_envs, a), got.q_values
+  else:
+    dist = got.q_logits if name == "c51" else got.q_dist
+    plain_dist = plain_dist.reshape(dist_shape)
   if tuple(dist.shape) != dist_shape or \
       tuple(got.q_values.shape) != (cfg.num_envs, a) or \
       not bool(torch.isfinite(dist).all()):
@@ -1899,8 +1921,10 @@ def main() -> int:
                           d, "breakout", timed=40, fenced=20,
                           eval_supersteps=100)),
                       ("pil", phase_pil_path),
-                      ("c51", lambda d: phase_seaquest_path(d, "c51")),
-                      ("qrdqn", lambda d: phase_seaquest_path(d, "qrdqn")),
+                      ("c51", lambda d: phase_learner_path(d, "c51")),
+                      ("qrdqn", lambda d: phase_learner_path(d, "qrdqn")),
+                      ("double_q", lambda d: phase_learner_path(
+                          d, "double_q", "demon_attack")),
                       ("iqn", phase_iqn_path),
                       ("resume", phase_resume_path)):
     torch.cuda.empty_cache()

@@ -80,9 +80,11 @@ def register_game(game: Game) -> Game:
 
 
 def get_game(name: str) -> Game:
-  from dqn_zoo_torch.envs.games import (asterix, atlantis,  # noqa: F401
-                                        breakout, catch, freeway,
-                                        pong, seaquest, skiing,
+  from dqn_zoo_torch.envs.games import (assault, asterix,  # noqa: F401
+                                        atlantis, beam_rider, bowling,
+                                        boxing, breakout, catch,
+                                        crazy_climber, demon_attack,
+                                        freeway, pong, seaquest, skiing,
                                         space_invaders)
   if name not in _REGISTRY:
     raise KeyError(f"Game {name!r} is not ported yet; have "

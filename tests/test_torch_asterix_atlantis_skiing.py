@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_games_jax import near, random_policy, run_against_jax, step_sweep
+from torch_games_jax import near, one_env, one_frame, random_policy
+from torch_games_jax import run_against_jax, step_sweep
 
 from dqn_zoo_torch.envs.games import asterix as ax
 from dqn_zoo_torch.envs.games import atlantis as at
@@ -74,19 +75,6 @@ def test_vector_env_matches_jax_step_for_step(name):
   assert all(v > 0 for v in seen.values()), seen
 
 
-def _state(game, seed=0):
-  gen = torch.Generator().manual_seed(seed)
-  return game.GAME.init(game.GAME.init_draws(gen, 1, "cpu"))
-
-
-def _step(game, state, action, frames=1):
-  draws = game.GAME.step_draws(torch.Generator().manual_seed(1), 1, "cpu",
-                               frames) if game.GAME.per_frame_draws else None
-  if draws is not None:
-    draws = type(draws)(*(x[0] for x in draws))
-  return game.GAME.step(state, torch.tensor([action]), draws)
-
-
 f32 = lambda v: torch.tensor([v], dtype=torch.float32)
 
 
@@ -94,7 +82,7 @@ f32 = lambda v: torch.tensor([v], dtype=torch.float32)
 
 
 def test_asterix_collect_scores_and_lyre_costs_life():
-  state = _state(ax)
+  state = one_env(ax)
   lane = 4
   obj_x = torch.full((1, ax.NUM_LANES), -100.0)
   obj_x[0, lane] = state.player_x[0]
@@ -103,7 +91,7 @@ def test_asterix_collect_scores_and_lyre_costs_life():
       obj_x=obj_x, obj_live=torch.ones_like(state.obj_live),
       obj_is_lyre=torch.zeros_like(state.obj_is_lyre),
       player_y=f32(float(ax.LANE_TOPS[lane])))
-  s2, reward, done, life_lost = _step(ax, state, 0)
+  s2, reward, done, life_lost = one_frame(ax, state, 0)
   assert float(reward) == ax.POINTS
   assert not bool(done) and not bool(life_lost)
   assert not bool(s2.obj_live[0, lane])  # consumed
@@ -111,24 +99,24 @@ def test_asterix_collect_scores_and_lyre_costs_life():
   lyre = state.obj_is_lyre.clone()
   lyre[0, lane] = True
   state = state._replace(obj_is_lyre=lyre)
-  s3, reward, done, life_lost = _step(ax, state, 0)
+  s3, reward, done, life_lost = one_frame(ax, state, 0)
   assert float(reward) == 0.0
   assert bool(life_lost) and not bool(done)
   assert int(s3.lives) == ax.LIVES - 1
   # Out of lives: done, and no life-loss signal (terminal instead).
   state = state._replace(lives=torch.tensor([1], dtype=torch.int32))
-  _, _, done, life_lost = _step(ax, state, 0)
+  _, _, done, life_lost = one_frame(ax, state, 0)
   assert bool(done) and not bool(life_lost)
 
 
 def test_asterix_eight_direction_movement():
-  state = _state(ax, 1)
+  state = one_env(ax, 1)
   state = state._replace(obj_live=torch.zeros_like(state.obj_live))
   x0, y0 = float(state.player_x), float(state.player_y)
   for action, want in {1: (0, -1), 2: (1, 0), 5: (1, -1), 8: (-1, 1),
                        3: (-1, 0), 4: (0, 1), 6: (-1, -1), 7: (1, 1),
                        0: (0, 0)}.items():
-    s, *_ = _step(ax, state, action)
+    s, *_ = one_frame(ax, state, action)
     got = (np.sign(float(s.player_x) - x0), np.sign(float(s.player_y) - y0))
     assert got == want, action
 
@@ -137,7 +125,7 @@ def test_asterix_eight_direction_movement():
 
 
 def test_atlantis_center_gun_downs_ship_on_beam():
-  state = _state(at)
+  state = one_env(at)
   slot = 2
   live = torch.zeros_like(state.ship_live)
   live[0, slot] = True
@@ -145,16 +133,16 @@ def test_atlantis_center_gun_downs_ship_on_beam():
   x[0, slot] = at.CENTER_GUN_X - at.SHIP_W / 2
   band[0, slot] = 3
   state = state._replace(ship_live=live, ship_x=x, ship_band=band)
-  s2, reward, done, _ = _step(at, state, 1)  # FIRE
+  s2, reward, done, _ = one_frame(at, state, 1)  # FIRE
   assert float(reward) == 400.0  # band 3: 100·4
   assert not bool(s2.ship_live[0, slot])
   assert not bool(done)
-  _, r0, _, _ = _step(at, state, 0)  # NOOP with the same geometry
+  _, r0, _, _ = one_frame(at, state, 0)  # NOOP with the same geometry
   assert float(r0) == 0.0
 
 
 def test_atlantis_death_ray_and_game_over():
-  state = _state(at)
+  state = one_env(at)
   live = torch.zeros_like(state.ship_live)
   live[0, 0] = True
   band, dirs, x = (state.ship_band.clone(), state.ship_dir.clone(),
@@ -163,13 +151,13 @@ def test_atlantis_death_ray_and_game_over():
   # A band-0 ship leaving the screen fires the death ray.
   state = state._replace(ship_live=live, ship_band=band, ship_dir=dirs,
                          ship_x=x)
-  s2, _, done, _ = _step(at, state, 0)
+  s2, _, done, _ = one_frame(at, state, 0)
   assert int(s2.city_live.sum()) == at.NUM_CITY - 1
   assert not bool(done)
   # The last city falls: game over.
   city = torch.zeros_like(state.city_live)
   city[0, 0] = True
-  s3, _, done, _ = _step(at, state._replace(city_live=city), 0)
+  s3, _, done, _ = one_frame(at, state._replace(city_live=city), 0)
   assert bool(done) and int(s3.city_live.sum()) == 0
 
 
@@ -177,20 +165,20 @@ def test_atlantis_death_ray_and_game_over():
 
 
 def test_skiing_terminal_reward_time_plus_misses():
-  state = _state(sk)
+  state = one_env(sk)
   # Just above the finish with every gate judged and passed.
   state = state._replace(
       course_y=f32(sk.COURSE_LEN - 1.0),
       gate_passed=torch.ones_like(state.gate_passed),
       gate_judged=torch.ones_like(state.gate_judged),
       frames=torch.tensor([2000], dtype=torch.int32))
-  _, reward, done, _ = _step(sk, state, 0)
+  _, reward, done, _ = one_frame(sk, state, 0)
   assert bool(done)
   np.testing.assert_allclose(float(reward), -(2001 * 100.0 / 60.0),
                              rtol=1e-5)
   # The same with every gate missed: 500 cs each.
   state = state._replace(gate_passed=torch.zeros_like(state.gate_passed))
-  _, reward, done, _ = _step(sk, state, 0)
+  _, reward, done, _ = one_frame(sk, state, 0)
   assert bool(done)
   np.testing.assert_allclose(
       float(reward), -(2001 * 100.0 / 60.0 + 500.0 * sk.NUM_GATES),
@@ -198,21 +186,21 @@ def test_skiing_terminal_reward_time_plus_misses():
 
 
 def test_skiing_gate_judging_and_speed():
-  state = _state(sk, 2)
+  state = one_env(sk, 2)
   gate0_y = sk.GATE_SPACING
   # Just above gate 0 and aligned with it: a straight descent passes it.
   state = state._replace(course_y=f32(gate0_y - 2.0),
                          skier_x=state.gate_x[:, 0].clone())
-  s2, _, _, _ = _step(sk, state, 0)
+  s2, _, _, _ = one_frame(sk, state, 0)
   assert bool(s2.gate_judged[0, 0]) and bool(s2.gate_passed[0, 0])
   # Far from the gate: judged, but missed.
   state = state._replace(skier_x=torch.clamp(
       state.gate_x[:, 0] + 50.0, sk.SKIER_X_MIN, sk.SKIER_X_MAX))
-  s3, _, _, _ = _step(sk, state, 0)
+  s3, _, _, _ = one_frame(sk, state, 0)
   assert bool(s3.gate_judged[0, 0]) and not bool(s3.gate_passed[0, 0])
   # Turning is slower than a straight descent.
-  straight, _, _, _ = _step(sk, state, 0)
-  turning, _, _, _ = _step(sk, state, 1)
+  straight, _, _, _ = one_frame(sk, state, 0)
+  turning, _, _, _ = one_frame(sk, state, 1)
   assert float(straight.course_y) > float(turning.course_y)
 
 

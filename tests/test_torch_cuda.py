@@ -543,7 +543,9 @@ def test_seaquest_on_the_card_matches_the_cpu(dev):
 
 
 @pytest.mark.parametrize("name", ["breakout", "space_invaders", "freeway",
-                                  "asterix", "atlantis", "skiing"])
+                                  "asterix", "atlantis", "skiing", "assault",
+                                  "beam_rider", "bowling", "boxing",
+                                  "crazy_climber", "demon_attack"])
 def test_game_on_the_card_matches_the_cpu(dev, name):
   """Each game ported beside seaquest, at B=16 for 24 groups under a
   48-frame episode cap (resets within the run), on the card and on the CPU
@@ -599,47 +601,104 @@ def _near(gen, edges, n, ulps=3):
   return x
 
 
-@pytest.mark.parametrize("name", ["breakout", "space_invaders"])
-def test_game_steps_at_grid_edges_on_the_card_match_the_cpu(dev, name):
-  """One raw frame of 4,096 states whose ball sits within 3 ulps of the
-  brick grid's edges, or whose shot sits within 3 ulps of an alien row's
-  edge and inside a column (the floors of reciprocal products), on
-  the card and on the CPU: reward, done, life loss and the new state bit
-  for bit, and bricks or aliens hit on both."""
+def _edge_states(name, gen, n):
+  """n states of `name` at the edges of its floors and comparisons: the
+  ball within 3 ulps of the brick grid's edges (breakout), the shot within
+  3 ulps of an alien row's edge and inside a column (space_invaders); the
+  ball within 3 ulps of a pin's rim (bowling); waves or buildings 0-40
+  under the speed ramps' multiply-adds with drones, demons or pots at the
+  walls or the top (assault, demon_attack, crazy_climber). Returns the
+  states and the reward or life events the step must show."""
   from dqn_zoo_torch.envs.api import get_game
+  from dqn_zoo_torch.envs.games import bowling as bw
   from dqn_zoo_torch.envs.games import breakout as bo
   from dqn_zoo_torch.envs.games import space_invaders as si
 
-  n = 4096
   game = get_game(name)
-  gen = torch.Generator().manual_seed(6)
   state = game.init(game.init_draws(gen, n, "cpu"))
   zero = torch.zeros(n)
+  rand = lambda *shape: torch.rand(shape, generator=gen)
+  ints = lambda hi, *shape: torch.randint(0, hi, shape, generator=gen,
+                                          dtype=torch.int32)
+  rewarded = lambda out: int((out[1] > 0).sum())
   if name == "breakout":
-    state = state._replace(
+    return state._replace(
         ball_dead=torch.zeros(n, dtype=torch.bool), ball_vx=zero,
         ball_vy=zero,
         ball_y=_near(gen, [56.0 + 6.0 * k for k in range(-1, 8)], n),
         ball_x=_near(gen, [7.0 + 8.0 * k for k in range(-1, 20)], n),
-        bricks=torch.rand(n, bo.ROWS, bo.COLS, generator=gen) < 0.7)
-    draws = game.step_draws(gen, n, "cpu")
-  else:
-    gx = 20.0 + 40.0 * torch.rand(n, generator=gen)
-    gy = 40.0 + 40.0 * torch.rand(n, generator=gen)
-    state = state._replace(
-        aliens=torch.rand(n, si.ROWS, si.COLS, generator=gen) < 0.7,
+        bricks=rand(n, bo.ROWS, bo.COLS) < 0.7), rewarded
+  if name == "space_invaders":
+    gx = 20.0 + 40.0 * rand(n)
+    gy = 40.0 + 40.0 * rand(n)
+    return state._replace(
+        aliens=rand(n, si.ROWS, si.COLS) < 0.7,
         grid_x=gx, grid_y=gy, shot_live=torch.ones(n, dtype=torch.bool),
-        shot_x=gx + 16.0 * torch.randint(-1, 7, (n,), generator=gen)
-        + 2.0 + 8.0 * torch.rand(n, generator=gen),
+        shot_x=gx + 16.0 * (ints(8, n) - 1) + 2.0 + 8.0 * rand(n),
         shot_y=gy + si.SHOT_SPEED + _near(
             gen, [14.0 * k for k in range(-1, 7)], n),
-        wave=torch.randint(0, 10, (n,), generator=gen, dtype=torch.int32))
-    draws = type(game.step_draws(gen, n, "cpu", 1))(
-        *(x[0] for x in game.step_draws(gen, n, "cpu", 1)))
+        wave=ints(10, n)), rewarded
+  if name == "bowling":
+    pin = torch.randint(0, bw.NUM_PINS, (n,), generator=gen)
+    xy = torch.from_numpy(bw._PIN_XY)[pin]
+    dx = (ints(13, n) - 6).float()
+    side = torch.where(rand(n) < 0.5, -1.0, 1.0)
+    return state._replace(
+        ball_x=xy[:, 0] - dx - bw.BALL_SPEED,
+        ball_y=xy[:, 1] + _near(gen, [0.0], n)
+        + side * torch.sqrt(36.0 - dx * dx),
+        hooked=torch.ones(n, dtype=torch.bool)), rewarded
+  level = ints(41, n)
+  dirs = torch.where(rand(n, 3) < 0.5, -1.0, 1.0)
+  if name == "crazy_climber":
+    pot_y = 150.0 + 12.0 * torch.randint(-1, 2, (n, 3), generator=gen)
+    pot_y[:, 0] = 0.0  # a pot at the top takes the speed as its height
+    knocked = lambda out: int((out[0].lives < state.lives).sum())
+    return state._replace(
+        building=level, pot_y=pot_y - 2.6 - 0.4 * level[:, None].float(),
+        pot_col=state.col[:, None].expand(-1, 3).contiguous(),
+        pot_live=torch.ones(n, 3, dtype=torch.bool),
+        frame=ints(100_000, n), row=ints(25, n)), knocked
+  lo, hi, speed = {"assault": (8.0, 138.0, 1.4 + 0.3 * level.float()),
+                   "demon_attack": (8.0, 144.0, 1.2 + 0.3 * level.float())
+                   }[name]
+  x = torch.where(dirs > 0, hi, lo) + _near(gen, [0.0], n * 3).view(n, 3) \
+      - dirs * speed[:, None]
+  if name == "assault":
+    return state._replace(
+        wave=level, drone_x=x, drone_dir=dirs,
+        drone_y=60.0 + 100.0 * rand(n, 3),
+        drone_live=rand(n, 3) < 0.8,
+        heat=torch.arange(n, dtype=torch.int32) % 100), \
+        lambda out: int((out[0].drone_x != x).sum())
+  return state._replace(
+      wave=level, demon_x=x, demon_dir=dirs), \
+      lambda out: int((out[0].demon_x != x).sum())
+
+
+@pytest.mark.parametrize("name", ["breakout", "space_invaders", "bowling",
+                                  "assault", "crazy_climber",
+                                  "demon_attack"])
+def test_game_steps_at_grid_edges_on_the_card_match_the_cpu(dev, name):
+  """One raw frame of 4,096 states at the edges of the game's floors of
+  reciprocal products, squared distances and multiply-adds
+  (`_edge_states`), on the card and on the CPU: reward, done, life loss and
+  the new state bit for bit, and the edge's events on both."""
+  from dqn_zoo_torch.envs.api import get_game
+
+  n = 4096
+  game = get_game(name)
+  gen = torch.Generator().manual_seed(6)
+  state, events = _edge_states(name, gen, n)
+  if game.per_frame_draws:
+    draws = game.step_draws(gen, n, "cpu", 1)
+    draws = type(draws)(*(x[0] for x in draws))
+  else:
+    draws = game.step_draws(gen, n, "cpu")
+  to_dev = lambda t: None if t is None else type(t)(*(x.to(dev) for x in t))
   actions = torch.randint(0, game.num_actions, (n,), generator=gen)
   want = game.step(state, actions, draws)
-  got = game.step(type(state)(*(x.to(dev) for x in state)), actions.to(dev),
-                  type(draws)(*(x.to(dev) for x in draws)))
+  got = game.step(to_dev(state), actions.to(dev), to_dev(draws))
   for a, w in zip(got[1:] + tuple(got[0]), want[1:] + tuple(want[0])):
     assert torch.equal(a.cpu(), w)
-  assert int((want[1] > 0).sum()) > 100
+  assert events(want) > 100

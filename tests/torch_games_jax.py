@@ -24,6 +24,8 @@ from dqn_zoo_torch import convert
 from dqn_zoo_torch.envs.api import get_game
 from dqn_zoo_torch.envs.games import asterix, atlantis, breakout, freeway
 from dqn_zoo_torch.envs.games import seaquest, skiing, space_invaders
+from dqn_zoo_torch.envs.games import assault, beam_rider, bowling, boxing
+from dqn_zoo_torch.envs.games import crazy_climber, demon_attack
 from dqn_zoo_torch.envs.vector import EnvDraws, VectorAtariEnv
 from dqn_zoo_torch.envs.vector import VectorEnvConfig
 
@@ -31,13 +33,14 @@ split = jax.random.split
 uniform = jax.random.uniform
 
 
-def _frames(key, frames, draw):
+def _frames(key, frames, draw, parts=3):
   """`draw` of `frames` raw frames stepped from game key `key`, each frame
-  splitting the key in three and drawing from the second and third parts."""
+  splitting the key in `parts` and drawing from every part but the first,
+  which the next frame splits."""
   out = []
   for _ in range(frames):
-    key, k1, k2 = split(key, 3)
-    out.append(draw(k1, k2))
+    key, *keys = split(key, parts)
+    out.append(draw(*keys))
   return jax.tree.map(lambda *x: jnp.stack(x), *out)
 
 
@@ -117,6 +120,79 @@ def _seaquest_step(key, frames):
                  lambda k1, k2: (uniform(k1, (seaquest.NUM_LANES,)),))
 
 
+def _bowling_init(k):
+  # Bowling draws nothing; its init draws carry only the batch.
+  return (jnp.zeros((), jnp.int32),), k
+
+
+def _boxing_init(k):
+  key, k1, k2 = split(k, 3)
+  return (uniform(k1, (2,), minval=-16.0, maxval=16.0),
+          jax.random.randint(k2, (), 0, boxing.COOLDOWN)), key
+
+
+def _boxing_step(key, frames):
+  return _frames(key, frames, lambda k1: (
+      jax.random.bernoulli(k1, boxing.FEINT_PROB),), parts=2)
+
+
+def _beam_rider_init(k):
+  key, k1 = split(k)
+  return (jax.random.randint(k1, (), 0, beam_rider.BEAMS),), key
+
+
+def _beam_rider_step(key, frames):
+  n = beam_rider.NUM_SAUCERS
+  return _frames(key, frames, lambda k1, k2: (
+      uniform(k1, (n,)), jax.random.randint(k2, (n,), 0, beam_rider.BEAMS)))
+
+
+def _assault_init(k):
+  key, k1, k2 = split(k, 3)
+  return (uniform(k1, (), minval=assault.LEFT,
+                  maxval=assault.RIGHT - assault.PLAYER_W),
+          jax.random.bernoulli(k2)), key
+
+
+def _assault_step(key, frames):
+  n = assault.NUM_DRONES
+  return _frames(key, frames, lambda k1, k2: (uniform(k1, (n,)),
+                                              uniform(k2, (n,))))
+
+
+def _climber_init(k):
+  key, k1, k2 = split(k, 3)
+  cc = crazy_climber
+  return (jax.random.randint(k1, (), 0, cc.COLS),
+          jax.random.randint(k2, (cc.COLS,), 0, cc.SHUT_PERIOD)), key
+
+
+def _climber_step(key, frames):
+  cc = crazy_climber
+  n = cc.NUM_POTS
+  return _frames(key, frames, lambda k1, k2, k3: (
+      uniform(k1, (n,)), jax.random.randint(k2, (n,), 0, cc.COLS),
+      uniform(k3, (n,))), parts=4)
+
+
+def _demon_init(k):
+  key, k1, k2, k3 = split(k, 4)
+  da = demon_attack
+  n = da.NUM_DEMONS
+  return (uniform(k1, (), minval=da.LEFT, maxval=da.RIGHT - da.PLAYER_W),
+          uniform(k2, (n,), minval=da.LEFT, maxval=da.RIGHT - da.DEMON_W),
+          jax.random.bernoulli(k3, shape=(n,))), key
+
+
+def _demon_step(key, frames):
+  da = demon_attack
+  n = da.NUM_DEMONS
+  return _frames(key, frames, lambda k1, k2, k3: (
+      uniform(k1, (n,)),
+      uniform(k2, (n,), minval=da.LEFT, maxval=da.RIGHT - da.DEMON_W),
+      uniform(k3, (n,))), parts=4)
+
+
 # name: (init, step or None, init draws class, step draws class or None)
 GAMES = {
     "seaquest": (_seaquest_init, _seaquest_step, seaquest.SeaquestInitDraws,
@@ -132,6 +208,20 @@ GAMES = {
     "atlantis": (_atlantis_init, _atlantis_step, atlantis.AtlantisInitDraws,
                  atlantis.AtlantisStepDraws),
     "skiing": (_skiing_init, None, skiing.SkiingInitDraws, None),
+    "bowling": (_bowling_init, None, bowling.BowlingInitDraws, None),
+    "boxing": (_boxing_init, _boxing_step, boxing.BoxingInitDraws,
+               boxing.BoxingStepDraws),
+    "beam_rider": (_beam_rider_init, _beam_rider_step,
+                   beam_rider.BeamRiderInitDraws,
+                   beam_rider.BeamRiderStepDraws),
+    "assault": (_assault_init, _assault_step, assault.AssaultInitDraws,
+                assault.AssaultStepDraws),
+    "crazy_climber": (_climber_init, _climber_step,
+                      crazy_climber.CrazyClimberInitDraws,
+                      crazy_climber.CrazyClimberStepDraws),
+    "demon_attack": (_demon_init, _demon_step,
+                     demon_attack.DemonAttackInitDraws,
+                     demon_attack.DemonAttackStepDraws),
 }
 
 
@@ -257,32 +347,28 @@ def near(rng, edges, n, ulps=2):
   return x.astype(np.float32)
 
 
-def step_sweep(name, edit, n=1024, renders=32, seed=0):
-  """One raw frame of the game's step function on n states that `edit(JAX
-  states, numpy rng)` sets near the edges of its tests, JAX's (vmapped and
-  jitted, as the vector env compiles it) against the port's: the reward,
-  done, life-loss and every state field exact; then the first `renders`
-  frames of the new states, exact."""
-  jgame, game = jget_game(name), get_game(name)
-  rng = np.random.RandomState(seed)
-  jstates = jax.vmap(jgame.init)(jax.random.split(jax.random.PRNGKey(seed),
-                                                   n))
-  jstates = edit(jstates, rng)
-  actions = rng.randint(0, game.num_actions, n).astype(np.int32)
-  jnew, jr, jd, jl = jax.jit(jax.vmap(jgame.step))(jstates,
-                                                   jnp.asarray(actions))
+def _one_frame_draws(name, keys):
+  """The port's draws of one raw frame of `name` for JAX game states with
+  these keys (None for a game whose step draws nothing)."""
   _, step, _, step_cls = GAMES[name]
   if step_cls is None:
-    draws = None
-  else:
-    d = jax.jit(jax.vmap(lambda k: step(k, 1)))(jstates.key)
-    t = lambda x: torch.from_numpy(np.array(x))
-    draws = step_cls(*((t(x)[:, 0] if game.per_frame_draws else t(x))
-                       for x in d))
-  cls = type(game.init(game.init_draws(torch.Generator(), 1, "cpu")))
-  tstates = convert.namedtuple_from_jax(cls, jax.device_get(jstates), "cpu")
+    return None
+  d = jax.jit(jax.vmap(lambda k: step(k, 1)))(keys)
+  t = lambda x: torch.from_numpy(np.array(x))
+  per_frame = get_game(name).per_frame_draws
+  return step_cls(*((t(x)[:, 0] if per_frame else t(x)) for x in d))
+
+
+def _step_both(name, cls, jstates, tstates, actions, renders):
+  """One raw frame of JAX's step (vmapped and jitted, as the vector env
+  compiles it) and of the port's from the same states, JAX's draws handed
+  to the port: the reward, done, life-loss and every state field exact;
+  then the first `renders` frames of the new states, exact."""
+  jgame, game = jget_game(name), get_game(name)
+  jnew, jr, jd, jl = jax.jit(jax.vmap(jgame.step))(jstates,
+                                                   jnp.asarray(actions))
   tnew, tr, td, tl = game.step(tstates, torch.from_numpy(actions).long(),
-                               draws)
+                               _one_frame_draws(name, jstates.key))
   for what, a, w in (("reward", tr, jr), ("done", td, jd),
                      ("life_lost", tl, jl)):
     np.testing.assert_array_equal(a.numpy(), np.asarray(w),
@@ -296,3 +382,73 @@ def step_sweep(name, edit, n=1024, renders=32, seed=0):
       np.asarray(jax.jit(jax.vmap(jgame.render))(head)),
       err_msg=f"{name}: render")
   return tnew, tr, td
+
+
+def step_sweep(name, edit, n=1024, renders=32, seed=0):
+  """One raw frame of the game's step function on n states that `edit(JAX
+  states, numpy rng)` sets near the edges of its tests, JAX's against the
+  port's (`_step_both`)."""
+  jgame, game = jget_game(name), get_game(name)
+  rng = np.random.RandomState(seed)
+  jstates = jax.vmap(jgame.init)(jax.random.split(jax.random.PRNGKey(seed),
+                                                   n))
+  jstates = edit(jstates, rng)
+  actions = rng.randint(0, game.num_actions, n).astype(np.int32)
+  cls = type(game.init(game.init_draws(torch.Generator(), 1, "cpu")))
+  tstates = convert.namedtuple_from_jax(cls, jax.device_get(jstates), "cpu")
+  return _step_both(name, cls, jstates, tstates, actions, renders)
+
+
+def converted_mid_episode(name, b=16, groups=40, seed=7):
+  """JAX's vector env after `groups` groups of random play, converted by
+  convert.env_state_from_jax (the JAX key dropped): the converted game
+  states render as JAX's do, and one raw frame of the step from them, JAX's
+  draws given, is JAX's (`_step_both`), frames, rewards and every state
+  field exact. Returns the JAX vector env state."""
+  jgame, game = jget_game(name), get_game(name)
+  jenv = JVectorEnv(jgame, b, JEnvConfig())
+  jstate = jenv.init(jax.random.PRNGKey(seed))
+  jstep = jax.jit(jenv.step)
+  rng = np.random.RandomState(seed)
+  for _ in range(groups):
+    jstate, _ = jstep(jstate, jnp.asarray(
+        rng.randint(0, game.num_actions, b), jnp.int32))
+  jstate = jax.device_get(jstate)
+  eng = type("E", (), {"game": game})
+  tstate = convert.env_state_from_jax(eng, jstate, "cpu")
+  np.testing.assert_array_equal(
+      game.render(tstate.game_state).numpy(),
+      np.asarray(jax.jit(jax.vmap(jgame.render))(jstate.game_state)),
+      err_msg=f"{name}: render of the converted state")
+  actions = rng.randint(0, game.num_actions, b).astype(np.int32)
+  _step_both(name, type(tstate.game_state), jstate.game_state,
+             tstate.game_state, actions, b)
+  return jstate
+
+
+def one_env(module, seed=0, **fields):
+  """A fresh state of the game in `module` at B=1 from a seeded generator,
+  with the given fields set (numbers or lists, one env's values)."""
+  game = module.GAME
+  state = game.init(game.init_draws(torch.Generator().manual_seed(seed), 1,
+                                    "cpu"))
+  return state._replace(**{
+      k: torch.tensor(v, dtype=getattr(state, k).dtype).reshape(
+          getattr(state, k).shape) for k, v in fields.items()})
+
+
+def one_frame(module, state, action, seed=1, **draws):
+  """One raw frame of the game in `module` at B=1: its step draws from a
+  seeded generator (one frame's), the given fields replaced."""
+  game = module.GAME
+  gen = torch.Generator().manual_seed(seed)
+  if game.per_frame_draws:
+    d = game.step_draws(gen, 1, "cpu", 1)
+    d = type(d)(*(x[0] for x in d))
+  else:
+    d = game.step_draws(gen, 1, "cpu")
+  if draws:
+    d = d._replace(**{
+        k: torch.tensor(v, dtype=getattr(d, k).dtype).reshape(
+            getattr(d, k).shape) for k, v in draws.items()})
+  return game.step(state, torch.tensor([action]), d)

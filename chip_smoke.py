@@ -14,9 +14,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      (per-frame diver spawns, noop burns) and actions, every output
      (frames, rewards, lives, ...) and state field required bit for bit;
      GAMES: the same for breakout, space_invaders, freeway, asterix,
-     atlantis, skiing, assault, beam_rider, bowling, boxing, crazy_climber
-     and demon_attack, 32 groups each under a 48-frame episode cap (each
-     runs its reset branch); PIL: the exact Pillow resize on the card
+     atlantis, skiing, assault, beam_rider, bowling, boxing, crazy_climber,
+     demon_attack, enduro, fishing_derby, gopher, ice_hockey, ms_pacman and
+     phoenix, 32 groups each under a 48-frame episode cap (each runs its
+     reset branch); PIL: the exact Pillow resize on the card
      reproduces the golden digest of tests/test_pil_resize.py, and 128
      pooled breakout frames give the same observations at `pil` on the card
      and on the CPU;
@@ -64,7 +65,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      steps (a timed window of 40 learning supersteps, then a fenced split),
      then one eval chunk; check the loss, the outputs, that the parameters
      moved and that every kernel of that path was launched as often as the
-     path says;
+     path says (K1 1, K2 1, K3a 2, K3b 1, K4a 3, K4b 1, K4c 1 a learning
+     superstep), and print the replay-less checkpoint's bytes; then
+     IQN_MS_PACMAN_MAIN, the same phase for build_engine("iqn",
+     "ms_pacman", ...): 9 actions (K4a's last column tile ragged), episodes
+     cut short by lost lives, the timed supersteps that took the reset
+     branch counted;
   6. checkpoint/resume of the dqn/pong trainer at 5.'s shapes (RESUME):
      save with and without the replay (the 7.06 GB frame store), restore
      into a second engine and require every entry bit for bit; 40
@@ -77,7 +83,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      peak memory on the card and the host;
   7. print the kernels line, the card's name and power limit, and last the
      result line {"ok": true, "device": {...}}.
-The launch counters are set to 0 just before each path and read just after.
+The launch counters are set to 0 just before each path and read just after;
+each path's peak memory on the card is its own (the peak is reset before
+it).
 Needs a CUDA card; imports nothing of JAX or of dqn_zoo_tpu.
 """
 
@@ -134,6 +142,10 @@ PATH_KERNELS = {
     "iqn": ("gather_windows", "pooled_frame_to_84", "dqn_torso_fwd",
             "dqn_torso_fwd_residuals", "iqn_head_fwd",
             "iqn_head_fwd_residuals", "iqn_head_bwd_w", "iqn_head_bwd_d"),
+    "iqn_ms_pacman": ("gather_windows", "pooled_frame_to_84",
+                      "dqn_torso_fwd", "dqn_torso_fwd_residuals",
+                      "iqn_head_fwd", "iqn_head_fwd_residuals",
+                      "iqn_head_bwd_w", "iqn_head_bwd_d"),
     "resume": ("gather_windows", "pooled_frame_to_84", "dqn_torso_fwd",
                "dqn_torso_fwd_residuals"),
     "rainbow": ("gather_windows", "pooled_frame_to_84", "dqn_torso_fwd",
@@ -152,7 +164,8 @@ PATH_KERNELS = {
 # The games GAMES holds card against CPU, beside pong, catch and seaquest.
 NEW_GAMES = ("breakout", "space_invaders", "freeway", "asterix", "atlantis",
              "skiing", "assault", "beam_rider", "bowling", "boxing",
-             "crazy_climber", "demon_attack")
+             "crazy_climber", "demon_attack", "enduro", "fishing_derby",
+             "gopher", "ice_hockey", "ms_pacman", "phoenix")
 # tests/test_pil_resize.py's digest of Pillow's resize of RandomState(42)'s
 # (210, 160) image.
 GOLDEN_RESIZE_DIGEST = (
@@ -456,11 +469,16 @@ def phase_kernels(dev):
   # launches. `splits` is how many blocks share D per row tile (more than 1
   # where the row tiles alone would leave the card idle); a second launch
   # at the same shape must give the same bits.
+  # The iqn/ms_pacman path's shapes (A = 9, a ragged last column tile)
+  # follow pong's.
   shapes = [(128, 64, 6, False, "act"), (128, 64, 6, True, "act"),
             (4, 64, 6, False, "eval"), (4, 64, 6, True, "eval"),
             (3, 24, 18, False, "ragged"), (3, 24, 18, True, "ragged"),
             (1024, 64, 6, True, "learn_online"),
-            (1024, 128, 6, False, "learn_target")]
+            (1024, 128, 6, False, "learn_target"),
+            (128, 64, 9, False, "act_a9"),
+            (1024, 64, 9, True, "learn_online_a9"),
+            (1024, 128, 9, False, "learn_target_a9")]
   with torch.no_grad():
     for b, s, a, res, role in shapes:
       args = head_inputs(b, s, a)
@@ -1463,20 +1481,29 @@ def phase_learner_path(dev, name: str, game: str = "seaquest"):
   return counts
 
 
-def phase_iqn_path(dev):
-  """The port's iqn/pong trainer at full width (latent 64, 64 taus of each
-  kind, D = 3136, H = 512, A = 6, batch 1024) through the user's entry
-  points: the acting supersteps below the agent's own min fill, on past it
-  through the learn steps, then eval; returns the launch counts."""
+def phase_iqn_path(dev, game: str = "pong"):
+  """The port's iqn trainer at full width (latent 64, 64 taus of each
+  kind, D = 3136, H = 512, batch 1024) on pong (IQN_MAIN, A = 6) or
+  ms_pacman (IQN_MS_PACMAN_MAIN, A = 9, episodes cut short by lost lives)
+  through the user's entry points: the acting supersteps below the agent's
+  own min fill, on past it through the learn steps, then eval. Prints the
+  timed supersteps that took the reset branch and the replay-less
+  checkpoint's size against 64 MiB; returns the launch counts."""
+  import shutil
   from dqn_zoo_torch import kernels
   from dqn_zoo_torch.engine.superstep import leaves
   from dqn_zoo_torch.nets import IqnInputs, dqn_torso, iqn_head
   from dqn_zoo_torch.replay.device_replay import replay_size
-  from dqn_zoo_torch.run.train import build_engine
+  from dqn_zoo_torch.run import checkpoint as ckpt
+  from dqn_zoo_torch.run.train import build_engine, save_checkpoint
 
-  engine = build_engine("iqn", "pong", num_envs=128,
+  tag = "IQN_MAIN" if game == "pong" else f"IQN_{game.upper()}_MAIN"
+  engine = build_engine("iqn", game, num_envs=128,
                         replay_capacity=1_000_000, device="cuda")
   cfg, spec = engine.config, engine.spec
+  a = engine.game.num_actions
+  if a != {"pong": 6, "ms_pacman": 9}[game]:
+    fail(f"{game} has {a} actions")
   min_fill = spec.min_replay_capacity_fraction * cfg.replay_capacity
   if (spec.tau_samples_policy, spec.tau_samples_s_tm1, spec.tau_samples_s_t,
       spec.tau_latent_dim, spec.optimizer) != (64, 64, 64, 64, "adam") or \
@@ -1485,7 +1512,7 @@ def phase_iqn_path(dev):
     fail(f"unexpected iqn spec {spec} or schedule {cfg}")
   state = engine.init(seed=3)
   torch.cuda.synchronize()
-  print(f"IQN_MAIN engine built: replay {cfg.num_envs}x"
+  print(f"{tag} engine built: replay {cfg.num_envs}x"
         f"{cfg.slots_per_stream} rows, learning starts at {min_fill:.0f} "
         f"rows (superstep ~{min_fill / cfg.num_envs:.0f})", flush=True)
 
@@ -1610,8 +1637,8 @@ def phase_iqn_path(dev):
 
   # Outputs (after the counts were read: this launches K3a and K4a once
   # more): the quantile values of the current observations through the
-  # kernels are finite, of shape (128, 64, 6), and agree with the plain head
-  # on the same torso output; Q is their mean over tau.
+  # kernels are finite, of shape (128, 64, A), and agree with the plain
+  # head on the same torso output; Q is their mean over tau.
   with torch.no_grad():
     obs = state.stack.frames
     taus = torch.rand((cfg.num_envs, spec.tau_samples_policy),
@@ -1624,13 +1651,22 @@ def phase_iqn_path(dev):
         p["head"]["out"]["b"], engine.network.cos_embedding(taus),
         dqn_torso(p["torso"], obs))
   q_dist = out.q_dist
-  if tuple(q_dist.shape) != (128, 64, 6) or \
-      tuple(out.q_values.shape) != (128, 6) or \
+  if tuple(q_dist.shape) != (128, 64, a) or \
+      tuple(out.q_values.shape) != (128, a) or \
       not bool(torch.isfinite(q_dist).all()):
     fail(f"bad iqn quantile values {tuple(q_dist.shape)}")
   torch.testing.assert_close(q_dist, plain, rtol=1e-4, atol=1e-5)
   torch.testing.assert_close(out.q_values, plain.mean(dim=1), rtol=1e-4,
                              atol=1e-5)
+
+  # The replay-less checkpoint a chain of legs carries between calls.
+  root = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".ckpt",
+                      f"chip_smoke_iqn_{game}")
+  shutil.rmtree(root, ignore_errors=True)
+  lite = ckpt.TorchCheckpoint(root)
+  save_checkpoint(lite, state, 1, {}, 0, checkpoint_replay=False)
+  replayless_bytes = os.path.getsize(lite.state_path())
+  shutil.rmtree(root, ignore_errors=True)
 
   summary = dict(
       supersteps=supersteps, learn_steps=m.learn_steps,
@@ -1660,8 +1696,11 @@ def phase_iqn_path(dev):
       train_launches=train_counts,
       eval_launches={k: counts[k] - train_counts[k] for k in counts},
       q_dist_max_abs_err=float((q_dist - plain).abs().max()),
-      peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-  print("IQN_MAIN " + json.dumps(summary), flush=True)
+      q_dist_shape=list(q_dist.shape),
+      replayless_checkpoint_bytes=replayless_bytes,
+      replayless_checkpoint_fits_64mib=replayless_bytes <= 64 * 2**20,
+      peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=card())
+  print(f"{tag} " + json.dumps(summary), flush=True)
   return counts
 
 
@@ -1926,8 +1965,11 @@ def main() -> int:
                       ("double_q", lambda d: phase_learner_path(
                           d, "double_q", "demon_attack")),
                       ("iqn", phase_iqn_path),
+                      ("iqn_ms_pacman", lambda d: phase_iqn_path(
+                          d, "ms_pacman")),
                       ("resume", phase_resume_path)):
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     path_counts[path] = phase(dev)
 
   entries = []

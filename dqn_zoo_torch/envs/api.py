@@ -84,7 +84,9 @@ def get_game(name: str) -> Game:
                                         atlantis, beam_rider, bowling,
                                         boxing, breakout, catch,
                                         crazy_climber, demon_attack,
-                                        freeway, pong, seaquest, skiing,
+                                        enduro, fishing_derby, freeway,
+                                        gopher, ice_hockey, ms_pacman,
+                                        phoenix, pong, seaquest, skiing,
                                         space_invaders)
   if name not in _REGISTRY:
     raise KeyError(f"Game {name!r} is not ported yet; have "

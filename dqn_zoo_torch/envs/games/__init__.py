@@ -13,3 +13,12 @@ def last_true(hit: torch.Tensor) -> torch.Tensor:
   n = hit.shape[1]
   pick = n - 1 - torch.argmax(hit.flip(1).to(torch.uint8), dim=1)
   return hit & (torch.arange(n, device=hit.device) == pick[:, None])
+
+
+def isin(action: torch.Tensor, table) -> torch.Tensor:
+  """(B,) actions -> where each is one of the Python ints in `table` (the
+  reference's `jnp.isin` against a constant table)."""
+  out = action == table[0]
+  for a in table[1:]:
+    out = out | (action == a)
+  return out

@@ -8,9 +8,11 @@ reference's 13 fields plus `eval_frames`. Flag names are the JAX CLI's;
 flags of parts not ported yet (multi-device, bfloat16) raise when set.
 Agents: dqn, double_q, prioritized, iqn, rainbow, c51 and qrdqn (each also
 has its runner, `python -m dqn_zoo_torch.run.agents.<agent>`). Games: pong,
-catch, seaquest, breakout, space_invaders, freeway, asterix, atlantis and
-skiing. --resize_method=pil is the reference's exact Pillow resize. Runs on
-CUDA unless --device=cpu.
+catch, seaquest, breakout, space_invaders, freeway, asterix, atlantis,
+skiing, assault, beam_rider, bowling, boxing, crazy_climber, demon_attack,
+enduro, fishing_derby, gopher, ice_hockey, ms_pacman and phoenix.
+--resize_method=pil is the reference's exact Pillow resize. Runs on CUDA
+unless --device=cpu.
 
 Checkpoint/resume as the JAX CLI has it: --checkpoint_path keeps one slot
 of the full state (run/checkpoint.py); a run that finds it resumes there,

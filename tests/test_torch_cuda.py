@@ -545,7 +545,9 @@ def test_seaquest_on_the_card_matches_the_cpu(dev):
 @pytest.mark.parametrize("name", ["breakout", "space_invaders", "freeway",
                                   "asterix", "atlantis", "skiing", "assault",
                                   "beam_rider", "bowling", "boxing",
-                                  "crazy_climber", "demon_attack"])
+                                  "crazy_climber", "demon_attack", "enduro",
+                                  "fishing_derby", "gopher", "ice_hockey",
+                                  "ms_pacman", "phoenix"])
 def test_game_on_the_card_matches_the_cpu(dev, name):
   """Each game ported beside seaquest, at B=16 for 24 groups under a
   48-frame episode cap (resets within the run), on the card and on the CPU
@@ -576,6 +578,25 @@ def test_game_on_the_card_matches_the_cpu(dev, name):
     for a, w in zip(card_out + card_state.game_state,
                     cpu_out + cpu_state.game_state):
       assert torch.equal(a.cpu(), w)
+
+
+def test_enduro_render_on_the_card_matches_the_cpu(dev):
+  """Enduro's perspective (a product with 0.0025f, a square root taken in
+  float64, the multiply-adds of `envs.f32`) for 24,576 cars, denser near
+  the player, on the card and on the CPU: the frames bit for bit."""
+  from dqn_zoo_torch.envs.games import enduro as en
+
+  n = 4096
+  gen = torch.Generator().manual_seed(9)
+  state = en.GAME.init(en.GAME.init_draws(gen, n, "cpu"))
+  u = torch.rand((n, en.NUM_CARS), generator=gen)
+  state = state._replace(
+      car_z=en.SPAWN_AHEAD * u * u,
+      car_lane=torch.randint(0, en.NUM_LANES, (n, en.NUM_CARS),
+                             generator=gen, dtype=torch.int32))
+  want = en.GAME.render(state)
+  got = en.GAME.render(type(state)(*(x.to(dev) for x in state)))
+  assert torch.equal(got.cpu(), want)
 
 
 def test_pil_preprocessing_on_the_card_matches_the_cpu(dev):

@@ -26,6 +26,8 @@ from dqn_zoo_torch.envs.games import asterix, atlantis, breakout, freeway
 from dqn_zoo_torch.envs.games import seaquest, skiing, space_invaders
 from dqn_zoo_torch.envs.games import assault, beam_rider, bowling, boxing
 from dqn_zoo_torch.envs.games import crazy_climber, demon_attack
+from dqn_zoo_torch.envs.games import enduro, fishing_derby, gopher
+from dqn_zoo_torch.envs.games import ice_hockey, ms_pacman, phoenix
 from dqn_zoo_torch.envs.vector import EnvDraws, VectorAtariEnv
 from dqn_zoo_torch.envs.vector import VectorEnvConfig
 
@@ -33,15 +35,21 @@ split = jax.random.split
 uniform = jax.random.uniform
 
 
+def _chain(key, frames, draw):
+  """`draw(key) -> (key, draws)` of `frames` raw frames stepped from game
+  key `key`, stacked on a leading frame axis (a scan: XLA compiles one
+  frame's splits, not 34 frames' of them)."""
+  return jax.lax.scan(lambda k, _: draw(k), key, None, length=frames)[1]
+
+
 def _frames(key, frames, draw, parts=3):
   """`draw` of `frames` raw frames stepped from game key `key`, each frame
   splitting the key in `parts` and drawing from every part but the first,
   which the next frame splits."""
-  out = []
-  for _ in range(frames):
-    key, *keys = split(key, parts)
-    out.append(draw(*keys))
-  return jax.tree.map(lambda *x: jnp.stack(x), *out)
+  def frame(k):
+    k, *keys = split(k, parts)
+    return k, draw(*keys)
+  return _chain(key, frames, frame)
 
 
 # Per game: init(k_init) -> (init draws, key after init) and
@@ -120,8 +128,9 @@ def _seaquest_step(key, frames):
                  lambda k1, k2: (uniform(k1, (seaquest.NUM_LANES,)),))
 
 
-def _bowling_init(k):
-  # Bowling draws nothing; its init draws carry only the batch.
+def _no_init(k):
+  # The game's init draws nothing (its init draws carry only the batch)
+  # and keeps the key it is given.
   return (jnp.zeros((), jnp.int32),), k
 
 
@@ -193,6 +202,87 @@ def _demon_step(key, frames):
       uniform(k3, (n,))), parts=4)
 
 
+def _phoenix_init(k):
+  key, k1, k2, k3 = split(k, 4)
+  ph = phoenix
+  n = ph.NUM_BIRDS
+  return (uniform(k1, (), minval=ph.LEFT, maxval=ph.RIGHT - ph.PLAYER_W),
+          uniform(k2, (n,), minval=ph.LEFT, maxval=ph.RIGHT - ph.BIRD_W),
+          jax.random.bernoulli(k3, shape=(n,))), key
+
+
+def _phoenix_step(key, frames):
+  ph = phoenix
+  n = ph.NUM_BIRDS
+  return _frames(key, frames, lambda k1, k2, k3: (
+      uniform(k1, (n,)), uniform(k2, (n,)),
+      uniform(k3, (n,), minval=ph.LEFT, maxval=ph.RIGHT - ph.BIRD_W)),
+                 parts=4)
+
+
+def _gopher_step(key, frames):
+  # The step splits three ways and reads one coin, for both restarts.
+  return _frames(key, frames, lambda k_move, k_pop: (
+      jax.random.bernoulli(k_move),))
+
+
+def _enduro_init(k):
+  key, k1 = split(k)
+  kz, kl = split(k1)
+  n = enduro.NUM_CARS
+  return (uniform(kz, (n,), minval=enduro.SPAWN_AHEAD * 0.5,
+                  maxval=enduro.SPAWN_AHEAD),
+          jax.random.randint(kl, (n,), 0, enduro.NUM_LANES)), key
+
+
+def _enduro_step(key, frames):
+  n = enduro.NUM_CARS
+  return _frames(key, frames, lambda k1, k2: (
+      uniform(k1, (n,), minval=enduro.SPAWN_AHEAD * 0.6,
+              maxval=enduro.SPAWN_AHEAD),
+      jax.random.randint(k2, (n,), 0, enduro.NUM_LANES)))
+
+
+def _hockey_init(k):
+  key, k1 = split(k)
+  return (uniform(k1, (), minval=100.0, maxval=120.0),), key
+
+
+def _hockey_step(key, frames):
+  ih = ice_hockey
+  return _frames(key, frames, lambda k_aim, k_shoot: (
+      uniform(k_aim, (), minval=ih.AIM_LOW, maxval=ih.AIM_HIGH),
+      uniform(k_shoot, ())))
+
+
+def _derby_init(k):
+  key, kf, kd = split(k, 3)
+  n = fishing_derby.NUM_LANES
+  return (uniform(kf, (n,), minval=10.0, maxval=150.0),
+          jax.random.bernoulli(kd, shape=(n,))), key
+
+
+def _derby_frame(key):
+  # Two splits in a row: the escape test, then the respawn edge.
+  key, k_esc = split(key)
+  key, kr = split(key)
+  return key, (jax.random.bernoulli(k_esc, fishing_derby.ESCAPE_PROB),
+               jax.random.bernoulli(kr))
+
+
+def _derby_step(key, frames):
+  # Two splits in a row a frame.
+  return _chain(key, frames, _derby_frame)
+
+
+def _pacman_step(key, frames):
+  # One (4, 4) draw serves as the noise (u * 0.5) and as the random scores
+  # (u * 10).
+  g = ms_pacman.NUM_GHOSTS
+  return _frames(key, frames, lambda k1, k2: (
+      uniform(k1, (g, 4)), uniform(k2, (g, 1))[:, 0]))
+
+
 # name: (init, step or None, init draws class, step draws class or None)
 GAMES = {
     "seaquest": (_seaquest_init, _seaquest_step, seaquest.SeaquestInitDraws,
@@ -208,7 +298,7 @@ GAMES = {
     "atlantis": (_atlantis_init, _atlantis_step, atlantis.AtlantisInitDraws,
                  atlantis.AtlantisStepDraws),
     "skiing": (_skiing_init, None, skiing.SkiingInitDraws, None),
-    "bowling": (_bowling_init, None, bowling.BowlingInitDraws, None),
+    "bowling": (_no_init, None, bowling.BowlingInitDraws, None),
     "boxing": (_boxing_init, _boxing_step, boxing.BoxingInitDraws,
                boxing.BoxingStepDraws),
     "beam_rider": (_beam_rider_init, _beam_rider_step,
@@ -222,6 +312,20 @@ GAMES = {
     "demon_attack": (_demon_init, _demon_step,
                      demon_attack.DemonAttackInitDraws,
                      demon_attack.DemonAttackStepDraws),
+    "phoenix": (_phoenix_init, _phoenix_step, phoenix.PhoenixInitDraws,
+                phoenix.PhoenixStepDraws),
+    "gopher": (_no_init, _gopher_step, gopher.GopherInitDraws,
+               gopher.GopherStepDraws),
+    "enduro": (_enduro_init, _enduro_step, enduro.EnduroInitDraws,
+               enduro.EnduroStepDraws),
+    "ice_hockey": (_hockey_init, _hockey_step,
+                   ice_hockey.IceHockeyInitDraws,
+                   ice_hockey.IceHockeyStepDraws),
+    "fishing_derby": (_derby_init, _derby_step,
+                      fishing_derby.FishingDerbyInitDraws,
+                      fishing_derby.FishingDerbyStepDraws),
+    "ms_pacman": (_no_init, _pacman_step, ms_pacman.MsPacmanInitDraws,
+                  ms_pacman.MsPacmanStepDraws),
 }
 
 
@@ -260,6 +364,16 @@ def jax_env_draws(name, env_state, max_noops=30, repeat=4) -> EnvDraws:
                   step=step)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_env(name, b, cap):
+  """JAX's vector env of `name` at B=b (and its episode frame cap, None
+  for the default) and its jitted step, compiled once for the tests of a
+  process that share them."""
+  cfg = {} if cap is None else dict(episode_frame_cap=cap)
+  jenv = JVectorEnv(jget_game(name), b, JEnvConfig(**cfg))
+  return jenv, jax.jit(jenv.step)
+
+
 def run_against_jax(name, b, groups, policy, cap=None, seed=3, prepare=None,
                     on_step=None):
   """Steps JAX's vector env and the port's side by side for `groups`
@@ -271,11 +385,10 @@ def run_against_jax(name, b, groups, policy, cap=None, seed=3, prepare=None,
   sides go on from the edited one. `on_step(port state before, port state
   after, output)` sees each group. Returns the FIRST groups emitted."""
   cfg = {} if cap is None else dict(episode_frame_cap=cap)
-  jenv = JVectorEnv(jget_game(name), b, JEnvConfig(**cfg))
+  jenv, jstep = _jax_env(name, b, cap)
   jstate = jenv.init(jax.random.PRNGKey(seed))
   game = get_game(name)
   tenv = VectorAtariEnv(game, b, VectorEnvConfig(**cfg), "cpu")
-  jstep = jax.jit(jenv.step)
   eng = type("E", (), {"game": game})
   tstate = convert.env_state_from_jax(eng, jax.device_get(jstate), "cpu")
   firsts = 0
@@ -399,6 +512,22 @@ def step_sweep(name, edit, n=1024, renders=32, seed=0):
   return _step_both(name, cls, jstates, tstates, actions, renders)
 
 
+def render_sweep(name, edit, n=256, seed=0):
+  """The render of n states that `edit(JAX states, numpy rng)` sets (the
+  port's from them by convert), JAX's (vmapped and jitted) against the
+  port's, exact."""
+  jgame, game = jget_game(name), get_game(name)
+  rng = np.random.RandomState(seed)
+  jstates = edit(jax.vmap(jgame.init)(jax.random.split(
+      jax.random.PRNGKey(seed), n)), rng)
+  cls = type(game.init(game.init_draws(torch.Generator(), 1, "cpu")))
+  tstates = convert.namedtuple_from_jax(cls, jax.device_get(jstates), "cpu")
+  np.testing.assert_array_equal(
+      game.render(tstates).numpy(),
+      np.asarray(jax.jit(jax.vmap(jgame.render))(jstates)),
+      err_msg=f"{name}: render")
+
+
 def converted_mid_episode(name, b=16, groups=40, seed=7):
   """JAX's vector env after `groups` groups of random play, converted by
   convert.env_state_from_jax (the JAX key dropped): the converted game
@@ -406,9 +535,8 @@ def converted_mid_episode(name, b=16, groups=40, seed=7):
   draws given, is JAX's (`_step_both`), frames, rewards and every state
   field exact. Returns the JAX vector env state."""
   jgame, game = jget_game(name), get_game(name)
-  jenv = JVectorEnv(jgame, b, JEnvConfig())
+  jenv, jstep = _jax_env(name, b, None)
   jstate = jenv.init(jax.random.PRNGKey(seed))
-  jstep = jax.jit(jenv.step)
   rng = np.random.RandomState(seed)
   for _ in range(groups):
     jstate, _ = jstep(jstate, jnp.asarray(

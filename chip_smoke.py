@@ -15,9 +15,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      (frames, rewards, lives, ...) and state field required bit for bit;
      GAMES: the same for breakout, space_invaders, freeway, asterix,
      atlantis, skiing, assault, beam_rider, bowling, boxing, crazy_climber,
-     demon_attack, enduro, fishing_derby, gopher, ice_hockey, ms_pacman and
-     phoenix, 32 groups each under a 48-frame episode cap (each runs its
-     reset branch); PIL: the exact Pillow resize on the card
+     demon_attack, enduro, fishing_derby, gopher, ice_hockey, ms_pacman,
+     phoenix, qbert, star_gunner, tennis and zaxxon, 32 groups each under a
+     48-frame episode cap (each runs its reset branch); PIL: the exact Pillow resize on the card
      reproduces the golden digest of tests/test_pil_resize.py, and 128
      pooled breakout frames give the same observations at `pil` on the card
      and on the CPU;
@@ -42,7 +42,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      superstep (K1 1, K2 1, K3a 3, K3b 1) and the replay-less checkpoint's
      size; then RAINBOW_BREAKOUT_MAIN, the same trainer on breakout (4
      actions): 24 warm, 40 timed and 20 fenced supersteps and a
-     100-superstep eval chunk on 4 envs, the same checks; then PIL_MAIN,
+     100-superstep eval chunk on 4 envs, the same checks; then
+     RAINBOW_ZAXXON_MAIN, the same phase on zaxxon (18 actions, so the
+     noisy dueling head at 18 x 51 atoms; 3 lives, the reset branch
+     counted) at the same depth; then PIL_MAIN,
      the dqn/pong trainer at --resize_method=pil for 40 supersteps: K2 must
      not launch, K1, K3a and K3b must (1, 2, 1 a learning superstep);
   4c. drive the c51 and qrdqn paths on seaquest (C51_MAIN, QRDQN_MAIN) —
@@ -158,6 +161,8 @@ PATH_KERNELS = {
                  "dqn_torso_fwd_residuals"),
     "rainbow_breakout": ("gather_windows", "pooled_frame_to_84",
                          "dqn_torso_fwd", "dqn_torso_fwd_residuals"),
+    "rainbow_zaxxon": ("gather_windows", "pooled_frame_to_84",
+                       "dqn_torso_fwd", "dqn_torso_fwd_residuals"),
     # The exact Pillow resize takes the place of K2's `fast` one.
     "pil": ("gather_windows", "dqn_torso_fwd", "dqn_torso_fwd_residuals"),
 }
@@ -165,7 +170,8 @@ PATH_KERNELS = {
 NEW_GAMES = ("breakout", "space_invaders", "freeway", "asterix", "atlantis",
              "skiing", "assault", "beam_rider", "bowling", "boxing",
              "crazy_climber", "demon_attack", "enduro", "fishing_derby",
-             "gopher", "ice_hockey", "ms_pacman", "phoenix")
+             "gopher", "ice_hockey", "ms_pacman", "phoenix", "qbert",
+             "star_gunner", "tennis", "zaxxon")
 # tests/test_pil_resize.py's digest of Pillow's resize of RandomState(42)'s
 # (210, 160) image.
 GOLDEN_RESIZE_DIGEST = (
@@ -470,7 +476,8 @@ def phase_kernels(dev):
   # where the row tiles alone would leave the card idle); a second launch
   # at the same shape must give the same bits.
   # The iqn/ms_pacman path's shapes (A = 9, a ragged last column tile)
-  # follow pong's.
+  # follow pong's, and an 18-action game's (star_gunner, tennis, zaxxon)
+  # those.
   shapes = [(128, 64, 6, False, "act"), (128, 64, 6, True, "act"),
             (4, 64, 6, False, "eval"), (4, 64, 6, True, "eval"),
             (3, 24, 18, False, "ragged"), (3, 24, 18, True, "ragged"),
@@ -478,7 +485,10 @@ def phase_kernels(dev):
             (1024, 128, 6, False, "learn_target"),
             (128, 64, 9, False, "act_a9"),
             (1024, 64, 9, True, "learn_online_a9"),
-            (1024, 128, 9, False, "learn_target_a9")]
+            (1024, 128, 9, False, "learn_target_a9"),
+            (128, 64, 18, False, "act_a18"),
+            (1024, 64, 18, True, "learn_online_a18"),
+            (1024, 128, 18, False, "learn_target_a18")]
   with torch.no_grad():
     for b, s, a, res, role in shapes:
       args = head_inputs(b, s, a)
@@ -1027,7 +1037,10 @@ def phase_rainbow_path(dev, game: str = "pong", timed: int = 300,
     fail(f"launches per {path} learning superstep "
          f"{per_learning_superstep}, expected {want}")
   split = {}
-  state = engine.run(state, fenced, timings=split)
+  fenced_resets = []
+  for _ in range(fenced):
+    fenced_resets.append(state.env.needs_reset.any())
+    state = engine.superstep(state, timings=split)
   torch.cuda.synchronize()
   train_counts = kernels.counts()
   eval_ms = eval_frames = None
@@ -1120,6 +1133,7 @@ def phase_rainbow_path(dev, game: str = "pong", timed: int = 300,
       ms_per_learning_superstep=1e3 * t_run / timed,
       reset_supersteps_in_timed=int(torch.stack(resets).sum()),
       split_ms_per_superstep={k: 1e3 * v / fenced for k, v in split.items()},
+      reset_supersteps_in_fenced=int(torch.stack(fenced_resets).sum()),
       launches_per_learning_superstep=per_learning_superstep,
       parameters=n_params, max_seen_priority=max_seen,
       value_leaf_range=[leaf_min, leaf_max],
@@ -1130,6 +1144,7 @@ def phase_rainbow_path(dev, game: str = "pong", timed: int = 300,
       eval_launches={k: counts[k] - train_counts[k] for k in counts},
       q_logits_max_abs_err=float((got.q_logits - plain_logits).abs().max()),
       replayless_checkpoint_bytes=replayless_bytes,
+      replayless_checkpoint_fits_64mib=replayless_bytes <= 64 * 2**20,
       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=card())
   print(f"{tag} " + json.dumps(summary), flush=True)
   return counts
@@ -1958,6 +1973,9 @@ def main() -> int:
                       ("rainbow", phase_rainbow_path),
                       ("rainbow_breakout", lambda d: phase_rainbow_path(
                           d, "breakout", timed=40, fenced=20,
+                          eval_supersteps=100)),
+                      ("rainbow_zaxxon", lambda d: phase_rainbow_path(
+                          d, "zaxxon", timed=40, fenced=20,
                           eval_supersteps=100)),
                       ("pil", phase_pil_path),
                       ("c51", lambda d: phase_learner_path(d, "c51")),

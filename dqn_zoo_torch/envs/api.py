@@ -86,9 +86,9 @@ def get_game(name: str) -> Game:
                                         crazy_climber, demon_attack,
                                         enduro, fishing_derby, freeway,
                                         gopher, ice_hockey, ms_pacman,
-                                        phoenix, pong, seaquest, skiing,
-                                        space_invaders)
+                                        phoenix, pong, qbert, seaquest,
+                                        skiing, space_invaders,
+                                        star_gunner, tennis, zaxxon)
   if name not in _REGISTRY:
-    raise KeyError(f"Game {name!r} is not ported yet; have "
-                   f"{sorted(_REGISTRY)}.")
+    raise KeyError(f"Unknown game {name!r}; have {sorted(_REGISTRY)}.")
   return _REGISTRY[name]

@@ -26,6 +26,7 @@ import torch
 
 from dqn_zoo_torch.envs import render
 from dqn_zoo_torch.envs.api import Game, register_game
+from dqn_zoo_torch.envs.games import joystick
 
 TOP, BOTTOM = 40.0, 190.0
 LEFT, RIGHT = 12.0, 148.0
@@ -79,19 +80,6 @@ def ice_hockey_step_draws(gen, b, device, frames: int) -> IceHockeyStepDraws:
       shot_u=torch.rand((frames, b), generator=gen, device=device))
 
 
-def decode(action: torch.Tensor):
-  """The 18-action decode (boxing's): a direction and the fire bit."""
-  fire = (action == 1) | (action >= 10)
-  a = torch.where(action >= 10, action - 8, action)  # 10..17 -> 2..9
-  up = (a == 2) | (a == 6) | (a == 7)
-  right = (a == 3) | (a == 6) | (a == 8)
-  left = (a == 4) | (a == 7) | (a == 9)
-  down = (a == 5) | (a == 8) | (a == 9)
-  dx = right.to(torch.float32) - left.to(torch.float32)
-  dy = down.to(torch.float32) - up.to(torch.float32)
-  return dx, dy, fire
-
-
 def ice_hockey_init(draws: IceHockeyInitDraws) -> IceHockeyState:
   b = draws.puck_y.shape[0]
   dev = draws.puck_y.device
@@ -105,7 +93,7 @@ def ice_hockey_init(draws: IceHockeyInitDraws) -> IceHockeyState:
 
 def ice_hockey_step(state: IceHockeyState, action: torch.Tensor,
                     draws: IceHockeyStepDraws):
-  dx, dy, fire = decode(action)
+  dx, dy, fire = joystick(action)
   px = torch.clamp(state.px + dx * PLAYER_SPEED, LEFT, RIGHT - P_W)
   py = torch.clamp(state.py + dy * PLAYER_SPEED, MID, BOTTOM - P_H)
 

@@ -24,6 +24,7 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
+from dqn_zoo_torch.device import resolve_device
 from dqn_zoo_torch.envs.api import (FRAME_HEIGHT, FRAME_WIDTH, Game,
                                     GroupOutput, tree_where)
 
@@ -57,11 +58,14 @@ class VectorAtariEnv:
 
   def __init__(self, game: Game, batch_size: int,
                config: VectorEnvConfig = VectorEnvConfig(),
-               device: torch.device | str = "cpu"):
+               device: torch.device | str | None = None):
+    """`device` None runs on the card, as every entry point of the port
+    does (`device.resolve_device`: raises where there is none); the CPU
+    only when asked for."""
     self.game = game
     self.batch_size = batch_size
     self.config = config
-    self.device = torch.device(device)
+    self.device = resolve_device(device)
 
   @property
   def num_actions(self) -> int:

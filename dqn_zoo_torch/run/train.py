@@ -7,10 +7,11 @@ iteration 0 eval-only, one CSV row and one log line per iteration with the
 reference's 13 fields plus `eval_frames`. Flag names are the JAX CLI's;
 flags of parts not ported yet (multi-device, bfloat16) raise when set.
 Agents: dqn, double_q, prioritized, iqn, rainbow, c51 and qrdqn (each also
-has its runner, `python -m dqn_zoo_torch.run.agents.<agent>`). Games: pong,
-catch, seaquest, breakout, space_invaders, freeway, asterix, atlantis,
-skiing, assault, beam_rider, bowling, boxing, crazy_climber, demon_attack,
-enduro, fishing_derby, gopher, ice_hockey, ms_pacman and phoenix.
+has its runner, `python -m dqn_zoo_torch.run.agents.<agent>`). Games, all
+25 of the JAX package's: pong, catch, seaquest, breakout, space_invaders,
+freeway, asterix, atlantis, skiing, assault, beam_rider, bowling, boxing,
+crazy_climber, demon_attack, enduro, fishing_derby, gopher, ice_hockey,
+ms_pacman, phoenix, qbert, star_gunner, tennis and zaxxon.
 --resize_method=pil is the reference's exact Pillow resize. Runs on CUDA
 unless --device=cpu.
 

@@ -13,6 +13,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from test_torch_rainbow import jax_rainbow_draws
@@ -22,6 +23,7 @@ from torch_games_jax import near, run_against_jax, step_sweep
 
 from dqn_zoo_tpu.agents import get_agent as jget_agent
 from dqn_zoo_tpu.engine import Engine as JEngine
+from dqn_zoo_tpu.envs.api import get_game as jget_game
 from dqn_zoo_tpu.engine import EngineConfig as JEngineConfig
 from dqn_zoo_tpu.envs.vector import VectorEnvConfig as JEnvConfig
 from dqn_zoo_torch import convert
@@ -50,11 +52,21 @@ def tracking_policy(b, seed=0, noise=0.2):
 
 
 def test_get_game_serves_the_ported_games():
+  # All 25 of the JAX package's games, each with JAX's action count.
   for name, actions in (("pong", 6), ("catch", 3), ("seaquest", 18),
                         ("breakout", 4), ("space_invaders", 6),
                         ("freeway", 3), ("asterix", 9), ("atlantis", 4),
-                        ("skiing", 3)):
-    assert get_game(name).num_actions == actions, name
+                        ("skiing", 3), ("assault", 7), ("beam_rider", 9),
+                        ("bowling", 6), ("boxing", 18), ("crazy_climber", 9),
+                        ("demon_attack", 6), ("enduro", 9),
+                        ("fishing_derby", 18), ("gopher", 8),
+                        ("ice_hockey", 18), ("ms_pacman", 9), ("phoenix", 8),
+                        ("qbert", 6), ("star_gunner", 18), ("tennis", 18),
+                        ("zaxxon", 18)):
+    assert get_game(name).num_actions == actions == \
+        jget_game(name).num_actions, name
+  with pytest.raises(KeyError):
+    get_game("pitfall")
 
 
 def test_vector_breakout_matches_jax_step_for_step():
@@ -89,13 +101,13 @@ def test_breakout_life_loss_zero_discount():
 # --- rainbow/breakout supersteps ---------------------------------------------
 
 
-def _engines():
+def _engines(game):
   overrides = dict(target_network_update_period=400)
   jspec = dataclasses.replace(jget_agent("rainbow"), **overrides)
   tspec = dataclasses.replace(get_agent("rainbow"), **overrides)
   # Parity mode as build_engine sets it up for 4 streams, cut to batch 8:
   # two SGD steps a superstep; a 64-frame cap for resets within the run.
-  common = dict(game="breakout", num_envs=4, slots_per_stream=24,
+  common = dict(game=game, num_envs=4, slots_per_stream=24,
                 batch_size=8, learn_every=1, updates_per_learn=2,
                 total_train_frames=4_000)
   return (JEngine(JEngineConfig(agent=jspec, env_config=JEnvConfig(
@@ -104,24 +116,25 @@ def _engines():
               episode_frame_cap=64), **common), device="cpu"))
 
 
-def test_rainbow_breakout_supersteps_match_jax():
-  """n-step 3 under prioritized replay, two SGD steps a superstep, at the
-  bounds of test_torch_rainbow.py's catch supersteps: rows, the indicator
-  tree, the game state and the frame count exact; frames within K2's ±1;
-  the value tree exact at leaves no write touched, written ones as
-  priorities within 1e-5; loss rtol 1e-3; parameters within 5e-5 (rainbow's
-  lr is 6.25e-5, so max(5e-5, lr/2) = 5e-5), 99.9 % of them within 2e-6.
-  JAX's engine drops the max-seen priority (see test_torch_prioritized.py),
-  so its value tree and max are loaded into the port before each
-  superstep."""
-  jeng, teng = _engines()
-  env_draws = lambda env: jax_env_draws("breakout", env)
+def rainbow_supersteps_match_jax(game, supersteps=10):
+  """n-step 3 under prioritized replay, two SGD steps a superstep, on
+  `game`, at the bounds of test_torch_rainbow.py's catch supersteps: rows,
+  the indicator tree, the game state and the frame count exact; frames
+  within K2's ±1; the value tree exact at leaves no write touched, written
+  ones as priorities within 1e-5; loss rtol 1e-3; parameters within 5e-5
+  (rainbow's lr is 6.25e-5, so max(5e-5, lr/2) = 5e-5), 99.9 % of them
+  within 2e-6. JAX's engine drops the max-seen priority (see
+  test_torch_prioritized.py), so its value tree and max are loaded into the
+  port before each superstep. Returns the port's last state and JAX's
+  converted."""
+  jeng, teng = _engines(game)
+  env_draws = lambda env: jax_env_draws(game, env)
   jstate = jax.device_put(jax.device_get(jax.jit(jeng.init)(
       jax.random.PRNGKey(5))))
   tstate = convert.engine_state_from_jax(teng, jax.device_get(jstate))
   jstep = jax.jit(jeng.superstep)
   learned = moved = 0
-  for step in range(10):
+  for step in range(supersteps):
     jprev = jax.device_get(jstate)
     draws = jax_rainbow_draws(jeng, jprev, env_draws)
     prev = convert.replay_from_jax(jprev.replay, 84, "cpu", prioritized=True)
@@ -167,6 +180,11 @@ def test_rainbow_breakout_supersteps_match_jax():
   assert bool(ref.replay.is_terminal.any())  # truncations were inserted
   assert isinstance(tstate.opt_state, AdamState)
   assert int(tstate.opt_state.count) == learned
+  return tstate, ref
+
+
+def test_rainbow_breakout_supersteps_match_jax():
+  rainbow_supersteps_match_jax("breakout")
 
 
 def test_breakout_step_at_cell_edges_matches_jax():

@@ -245,6 +245,25 @@ def test_k4a_matches_plain(dev, b, s, a, residuals):
     torch.testing.assert_close(h, want_h, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("b,s,residuals", [(128, 64, False),
+                                            (1024, 64, True),
+                                            (1024, 128, False)],
+                         ids=["act", "learn_online", "learn_target"])
+def test_k4a_matches_plain_at_18_actions(dev, b, s, residuals):
+  """The head at an 18-action game's full-width shapes (qbert's six aside,
+  star_gunner, tennis and zaxxon take all 18): the last column tile
+  ragged, q (and h for the online net) within the same tolerances."""
+  args = _head_inputs(dev, b, s, 18, 11)
+  with torch.no_grad():
+    got = iqn_head.iqn_head_forward(*args, residuals=residuals)
+    want_q, want_h = iqn_head.iqn_head_plain_residuals(*args)
+  q = got[0] if residuals else got
+  assert tuple(q.shape) == (b, s, 18)
+  torch.testing.assert_close(q, want_q, rtol=1e-4, atol=1e-5)
+  if residuals:
+    torch.testing.assert_close(got[1], want_h, rtol=1e-4, atol=1e-5)
+
+
 @pytest.mark.parametrize("residuals", [False, True])
 def test_k4a_split_launches_are_bit_identical(dev, residuals):
   """At B = 4 the blocks share D and a second kernel adds their partials in
@@ -547,7 +566,8 @@ def test_seaquest_on_the_card_matches_the_cpu(dev):
                                   "beam_rider", "bowling", "boxing",
                                   "crazy_climber", "demon_attack", "enduro",
                                   "fishing_derby", "gopher", "ice_hockey",
-                                  "ms_pacman", "phoenix"])
+                                  "ms_pacman", "phoenix", "qbert",
+                                  "star_gunner", "tennis", "zaxxon"])
 def test_game_on_the_card_matches_the_cpu(dev, name):
   """Each game ported beside seaquest, at B=16 for 24 groups under a
   48-frame episode cap (resets within the run), on the card and on the CPU
@@ -578,6 +598,45 @@ def test_game_on_the_card_matches_the_cpu(dev, name):
     for a, w in zip(card_out + card_state.game_state,
                     cpu_out + cpu_state.game_state):
       assert torch.equal(a.cpu(), w)
+
+
+@pytest.mark.parametrize("name", ["tennis", "star_gunner"])
+def test_multiply_add_games_on_the_card_match_the_cpu(dev, name):
+  """One raw frame of 4,096 states where the games' multiply-adds land:
+  tennis balls at the paddles' reach at any offset and speed (the
+  returns' `envs.f32.fma` with 2.2/7 and 2/7), star_gunner raiders at any
+  jink velocity and 0-400 kills (the jink's and the speed's); on the card
+  and on the CPU, the new state bit for bit."""
+  from dqn_zoo_torch.envs.api import get_game
+
+  n = 4096
+  game = get_game(name)
+  gen = torch.Generator().manual_seed(8)
+  state = game.init(game.init_draws(gen, n, "cpu"))
+  rand = lambda *shape: torch.rand(shape, generator=gen)
+  if name == "tennis":
+    down = rand(n) < 0.5
+    px = 23.0 + 114.0 * rand(n)
+    bvx = 6.4 * rand(n) - 3.2
+    state = state._replace(
+        serve_timer=torch.zeros(n, dtype=torch.int32), px=px,
+        ox=px - 3.4 + 6.8 * rand(n), bx=px - 9.0 + 18.0 * rand(n) - bvx,
+        bvx=bvx, bvy=torch.where(down, 2.6, -2.6),
+        by=torch.where(down, 176.0, 46.0) + 9.0 * rand(n)
+        - torch.where(down, 2.6, -2.6))
+  else:
+    state = state._replace(
+        rvy=4.0 * rand(n, 3) - 2.0,
+        wave=torch.randint(0, 401, (n,), generator=gen, dtype=torch.int32),
+        rlive=rand(n, 3) < 0.9)
+  draws = game.step_draws(gen, n, "cpu", 1)
+  draws = type(draws)(*(x[0] for x in draws))
+  to_dev = lambda t: type(t)(*(x.to(dev) for x in t))
+  actions = torch.randint(0, game.num_actions, (n,), generator=gen)
+  want = game.step(state, actions, draws)
+  got = game.step(to_dev(state), actions.to(dev), to_dev(draws))
+  for a, w in zip(got[1:] + tuple(got[0]), want[1:] + tuple(want[0])):
+    assert torch.equal(a.cpu(), w)
 
 
 def test_enduro_render_on_the_card_matches_the_cpu(dev):

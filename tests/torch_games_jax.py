@@ -28,6 +28,7 @@ from dqn_zoo_torch.envs.games import assault, beam_rider, bowling, boxing
 from dqn_zoo_torch.envs.games import crazy_climber, demon_attack
 from dqn_zoo_torch.envs.games import enduro, fishing_derby, gopher
 from dqn_zoo_torch.envs.games import ice_hockey, ms_pacman, phoenix
+from dqn_zoo_torch.envs.games import qbert, star_gunner, tennis, zaxxon
 from dqn_zoo_torch.envs.vector import EnvDraws, VectorAtariEnv
 from dqn_zoo_torch.envs.vector import VectorEnvConfig
 
@@ -283,6 +284,70 @@ def _pacman_step(key, frames):
       uniform(k1, (g, 4)), uniform(k2, (g, 1))[:, 0]))
 
 
+def _tennis_step(key, frames):
+  # A serve's x speed is drawn every frame, used on a serve only.
+  return _frames(key, frames, lambda k_serve, k_miss: (
+      uniform(k_serve, (), minval=-2.0, maxval=2.0),
+      jax.random.bernoulli(k_miss, tennis.FUMBLE_PROB)))
+
+
+def _star_gunner_init(k):
+  key, k1, k2 = split(k, 3)
+  sg = star_gunner
+  return (uniform(k1, (), minval=sg.TOP + 20, maxval=sg.BOTTOM - 30),
+          uniform(k2, (sg.NUM_RAIDERS,), minval=sg.TOP,
+                  maxval=sg.BOTTOM - sg.RAIDER_H)), key
+
+
+def _star_gunner_step(key, frames):
+  sg = star_gunner
+  n = sg.NUM_RAIDERS
+  return _frames(key, frames, lambda k_jink, k_spawn_y, k_bolt: (
+      uniform(k_jink, (n,), minval=-0.8, maxval=0.8),
+      uniform(k_spawn_y, (n,), minval=sg.TOP,
+              maxval=sg.BOTTOM - sg.RAIDER_H),
+      uniform(k_bolt, (n,))), parts=4)
+
+
+def _qbert_step(key, frames):
+  # The ball's second coin comes from fold_in(k_ball, 1), not a split.
+  def draw(k_ball, k_coily):
+    return (jax.random.bernoulli(k_ball),
+            jax.random.bernoulli(jax.random.fold_in(k_ball, 1)),
+            uniform(k_coily, (4,), maxval=0.3))
+  return _frames(key, frames, draw)
+
+
+def _zaxxon_enemy(k):
+  # _spawn_enemy's split: the x offset, the y (drawn for a turret too,
+  # which does not use it) and the turret coin.
+  kx, ky, kt = split(k, 3)
+  za = zaxxon
+  return (uniform(kx, (), maxval=140.0),
+          uniform(ky, (), minval=za.Y_MIN, maxval=za.Y_MAX - 30),
+          jax.random.bernoulli(kt, 0.4))
+
+
+def _zaxxon_gap(k):
+  za = zaxxon
+  return uniform(k, (), minval=za.Y_MIN + za.GAP_H / 2,
+                 maxval=za.Y_MAX - za.GAP_H / 2)
+
+
+def _zaxxon_init(k):
+  key, kw, *keys = split(k, 2 + zaxxon.NUM_ENEMIES)
+  dx, y, turret = jax.vmap(_zaxxon_enemy)(jnp.stack(keys))
+  return (dx, y, turret, _zaxxon_gap(kw)), key
+
+
+def _zaxxon_step(key, frames):
+  # One key per enemy from k_re, each split again inside _spawn_enemy.
+  def draw(k_re, k_gap):
+    dx, y, turret = jax.vmap(_zaxxon_enemy)(split(k_re, zaxxon.NUM_ENEMIES))
+    return dx, y, turret, _zaxxon_gap(k_gap)
+  return _frames(key, frames, draw)
+
+
 # name: (init, step or None, init draws class, step draws class or None)
 GAMES = {
     "seaquest": (_seaquest_init, _seaquest_step, seaquest.SeaquestInitDraws,
@@ -326,6 +391,15 @@ GAMES = {
                       fishing_derby.FishingDerbyStepDraws),
     "ms_pacman": (_no_init, _pacman_step, ms_pacman.MsPacmanInitDraws,
                   ms_pacman.MsPacmanStepDraws),
+    "tennis": (_no_init, _tennis_step, tennis.TennisInitDraws,
+               tennis.TennisStepDraws),
+    "star_gunner": (_star_gunner_init, _star_gunner_step,
+                    star_gunner.StarGunnerInitDraws,
+                    star_gunner.StarGunnerStepDraws),
+    "qbert": (_no_init, _qbert_step, qbert.QbertInitDraws,
+              qbert.QbertStepDraws),
+    "zaxxon": (_zaxxon_init, _zaxxon_step, zaxxon.ZaxxonInitDraws,
+               zaxxon.ZaxxonStepDraws),
 }
 
 

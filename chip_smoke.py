@@ -48,6 +48,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      counted) at the same depth; then PIL_MAIN,
      the dqn/pong trainer at --resize_method=pil for 40 supersteps: K2 must
      not launch, K1, K3a and K3b must (1, 2, 1 a learning superstep);
+     then HOST_MAIN, the dqn/pong trainer at 3.'s config over the C++ farm
+     (HostEnvEngine over CppVectorEnv("pong", 128), the farm built from
+     cpp/dz_env.cc with g++ first): 20 warm, 200 timed, 40 fenced (farm,
+     upload, act, insert, learn) and 20 probe supersteps, the probe timing
+     how long the farm stepped while the card still ran the learn block;
+     K2 must not launch (the farm preprocesses on the host), K1, K3a and
+     K3b must (1, 2, 1 a learning superstep), and the rows the probe
+     inserted must be the farm's observations; then OVERLAP_MAIN, 3.'s
+     trainer with overlap_env_learn=True from 3.'s seed: 20 warm, 40 timed
+     and 20 fenced supersteps, K1 1, K2 1, K3a 2, K3b 1 a learning
+     superstep, learning from one superstep after 3.'s, its ms a superstep
+     printed beside 3.'s;
   4c. drive the c51 and qrdqn paths on seaquest (C51_MAIN, QRDQN_MAIN) —
      build_engine("c51" or "qrdqn", "seaquest", num_envs=128,
      replay_capacity=1e6): batch 1024, 18 actions, 51 atoms on ±10 or 201
@@ -89,7 +101,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 The launch counters are set to 0 just before each path and read just after;
 each path's peak memory on the card is its own (the peak is reset before
 it).
-Needs a CUDA card; imports nothing of JAX or of dqn_zoo_tpu.
+Needs a CUDA card and a C++ compiler (g++, or $CXX, for the farm); imports
+nothing of JAX or of dqn_zoo_tpu.
 """
 
 from __future__ import annotations
@@ -165,6 +178,10 @@ PATH_KERNELS = {
                        "dqn_torso_fwd", "dqn_torso_fwd_residuals"),
     # The exact Pillow resize takes the place of K2's `fast` one.
     "pil": ("gather_windows", "dqn_torso_fwd", "dqn_torso_fwd_residuals"),
+    # The C++ farm preprocesses on the host: no K2.
+    "host": ("gather_windows", "dqn_torso_fwd", "dqn_torso_fwd_residuals"),
+    "overlap": ("gather_windows", "pooled_frame_to_84", "dqn_torso_fwd",
+                "dqn_torso_fwd_residuals"),
 }
 # The games GAMES holds card against CPU, beside pong, catch and seaquest.
 NEW_GAMES = ("breakout", "space_invaders", "freeway", "asterix", "atlantis",
@@ -716,7 +733,11 @@ def phase_main_path(dev):
   kernels.reset_counts()
   t0 = time.perf_counter()
   warm = 20  # the learn gate opens at ~2000 active rows (superstep ~18)
-  state = engine.run(state, warm)
+  first = None
+  for i in range(warm):
+    state = engine.superstep(state)
+    if first is None and state.telemetry.learn_steps:
+      first = i
   torch.cuda.synchronize()
   t_warm = time.perf_counter() - t0
   # The timed window is long enough for pong's first episodes to end
@@ -774,19 +795,8 @@ def phase_main_path(dev):
 
   # Outputs: Q-values of the current observations through the kernels are
   # finite, of shape (128, 6), and agree with the plain torso.
-  from dqn_zoo_torch.nets import atari, torso_cuda
-  with torch.no_grad():
-    obs = state.stack.frames
-    q = engine.network.apply(state.online_params, obs).q_values
-    t = state.online_params["torso"]
-    plain = atari.dqn_value_head(state.online_params["head"],
-                                 torso_cuda.torso_plain(
-                                     t["conv1"]["w"], t["conv1"]["b"],
-                                     t["conv2"]["w"], t["conv2"]["b"],
-                                     t["conv3"]["w"], t["conv3"]["b"], obs))
-  if tuple(q.shape) != (128, 6) or not bool(torch.isfinite(q).all()):
-    fail(f"bad Q-values {tuple(q.shape)}")
-  torch.testing.assert_close(q, plain, rtol=1e-4, atol=1e-5)
+  q_err = _dqn_q_against_plain(engine.network, state.online_params,
+                               state.stack.frames)
 
   agent_steps = timed * cfg.num_envs
   mean_ms = lambda xs: 1e3 * sum(xs) / len(xs) if xs else None
@@ -807,8 +817,12 @@ def phase_main_path(dev):
       train_launches=train_counts,
       launches_per_learning_superstep=per_learning_superstep,
       eval_launches={k: counts[k] - train_counts[k] for k in counts},
-      q_max_abs_err=float((q - plain).abs().max()),
+      first_learning_superstep=first, q_max_abs_err=q_err,
       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+  MAIN_READINGS.update(
+      first_learning_superstep=first,
+      ms_per_superstep=summary["ms_per_superstep"],
+      host_ms_per_other_superstep=summary["host_ms_per_other_superstep"])
   print("MAIN " + json.dumps(summary), flush=True)
   return counts
 
@@ -1327,6 +1341,224 @@ def phase_pil_path(dev):
       launches_per_learning_superstep=per, train_launches=counts,
       ms_per_learning_superstep=1e3 * t_run / 20,
       training_env_steps_per_s=20 * 128 / t_run, card=card())),
+      flush=True)
+  return counts
+
+
+def _dqn_q_against_plain(network, params, obs) -> float:
+  """The DQN net's Q-values of `obs` through the kernels against the plain
+  torso and the same head (rtol 1e-4, atol 1e-5); returns the largest
+  difference."""
+  from dqn_zoo_torch.nets import atari, torso_cuda
+  with torch.no_grad():
+    q = network.apply(params, obs).q_values
+    t = params["torso"]
+    plain = atari.dqn_value_head(params["head"], torso_cuda.torso_plain(
+        t["conv1"]["w"], t["conv1"]["b"], t["conv2"]["w"], t["conv2"]["b"],
+        t["conv3"]["w"], t["conv3"]["b"], obs))
+  if tuple(q.shape) != (obs.shape[0], 6) or not bool(torch.isfinite(q).all()):
+    fail(f"bad Q-values {tuple(q.shape)}")
+  torch.testing.assert_close(q, plain, rtol=1e-4, atol=1e-5)
+  return float((q - plain).abs().max())
+
+
+# What MAIN read that OVERLAP_MAIN is held against or printed beside.
+MAIN_READINGS = {}
+
+
+def phase_host_path(dev):
+  """HOST_MAIN: the dqn/pong trainer over the C++ farm (HostEnvEngine over
+  CppVectorEnv("pong", 128), the farm built from cpp/dz_env.cc) at MAIN's
+  config: 128 envs, replay 1e6, throughput batch 1024, full-width Nature
+  DQN, min fill 0.2 %. 20 warm, 200 timed and 40 fenced supersteps, then
+  20 probe supersteps that time how long the farm stepped while the card
+  still ran the half-step's learn block. Checks the loss, the Q-values
+  against the plain torso, the uploaded observations against the farm's
+  and the launches per learning superstep (K1 1, K2 0: the farm
+  preprocesses on the host, K3a 2, K3b 1). Returns the launch counts."""
+  import numpy as np
+  from dqn_zoo_torch import kernels
+  from dqn_zoo_torch.engine.host_env import HostEnvEngine
+  from dqn_zoo_torch.envs import cpp_bridge
+  from dqn_zoo_torch.run.train import build_engine
+
+  farm_build_s = cpp_bridge.build_farm()
+  config = build_engine("dqn", "pong", num_envs=128,
+                        replay_capacity=1_000_000,
+                        min_replay_capacity_fraction=0.002,
+                        device="cuda").config
+  env = cpp_bridge.CppVectorEnv("pong", config.num_envs, seed=5,
+                                device="cuda")
+  engine = HostEnvEngine(config, env, device="cuda")
+  cfg = engine.config
+  if (cfg.batch_size, cfg.learn_every, cfg.updates_per_learn,
+      cfg.num_actions) != (1024, 1, 1, 6):
+    fail(f"unexpected host-engine config {cfg}")
+  state = engine.init(seed=1)
+  torch.cuda.synchronize()
+
+  kernels.reset_counts()
+  warm = 20
+  state = engine.run(state, warm)
+  torch.cuda.synchronize()
+  if state.telemetry.learn_steps == 0:
+    fail(f"HOST_MAIN took no learn step in {warm} supersteps")
+  timed = 200
+  steps_before = state.telemetry.learn_steps
+  counts_before = kernels.counts()
+  t0 = time.perf_counter()
+  state = engine.run(state, timed)
+  torch.cuda.synchronize()
+  t_run = time.perf_counter() - t0
+  counts_after = kernels.counts()
+  if state.telemetry.learn_steps - steps_before != timed:
+    fail(f"{state.telemetry.learn_steps - steps_before} HOST_MAIN learn steps "
+         f"in {timed} timed supersteps")
+  per_learning_superstep = {
+      k: (counts_after[k] - counts_before[k]) / timed for k in counts_after
+      if k in PATH_KERNELS["dqn"]}
+  want = {"gather_windows": 1, "pooled_frame_to_84": 0, "dqn_torso_fwd": 2,
+          "dqn_torso_fwd_residuals": 1}
+  if per_learning_superstep != want:
+    fail(f"launches per HOST_MAIN learning superstep "
+         f"{per_learning_superstep}, expected {want}")
+  split = {}
+  fenced = 40
+  state = engine.run(state, fenced, timings=split)
+  torch.cuda.synchronize()
+
+  # The probe: the loop of `run`, with a CUDA event after each half-step
+  # and one after the farm step that follows it. The device time between
+  # them is how long the card sat idle before the farm returned, so
+  # farm ms - that gap is how long the farm stepped while the card still
+  # ran the half-step's work.
+  probe = 20
+  marks, farm_s, fed = [], [], []
+  group = env.step(np.zeros((cfg.num_envs,), np.int32))
+  for _ in range(probe):
+    fed.append(torch.from_numpy(group.obs84.copy()))
+    state, actions = engine.step(state, group)
+    done = torch.cuda.Event(enable_timing=True)
+    done.record()
+    t1 = time.perf_counter()
+    group = env.step(actions)
+    farm_s.append(time.perf_counter() - t1)
+    back = torch.cuda.Event(enable_timing=True)
+    back.record()
+    marks.append((done, back))
+  torch.cuda.synchronize()
+  counts = kernels.counts()
+  gaps = [a.elapsed_time(b) for a, b in marks]
+  overlap = [max(0.0, min(1e3 * f, 1e3 * f - g))
+             for f, g in zip(farm_s, gaps)]
+  # The rows the probe inserted are the observations the farm returned.
+  c = engine.rcfg.slots_per_stream
+  first = state.replay.t - probe
+  for k, obs in enumerate(fed):
+    if not torch.equal(state.replay.frames[:, (first + k) % c].cpu(), obs):
+      fail(f"HOST_MAIN replay row {first + k} differs from the farm's group")
+
+  m = engine.metrics(state)
+  if m["learn_steps"] < 20 or not math.isfinite(m["last_loss"]):
+    fail(f"HOST_MAIN: {m}")
+  for name in PATH_KERNELS["host"]:
+    if counts[name] == 0:
+      fail(f"kernel {name} was not launched on the host-env path")
+  if counts["pooled_frame_to_84"]:
+    fail("HOST_MAIN launched K2")
+  q_err = _dqn_q_against_plain(engine.network, state.online_params,
+                               state.stack.frames)
+  mean = lambda xs: sum(xs) / len(xs)
+  env.close()
+  print("HOST_MAIN " + json.dumps(dict(
+      farm_build_s=farm_build_s, farm_threads=os.cpu_count(),
+      supersteps=warm + timed + fenced + probe, **m,
+      timed_supersteps=timed,
+      training_env_steps_per_s=timed * cfg.num_envs / t_run,
+      ms_per_superstep=1e3 * t_run / timed,
+      split_ms_per_superstep={k: 1e3 * v / fenced for k, v in split.items()},
+      probe_farm_ms=mean(farm_s) * 1e3, probe_card_idle_gap_ms=mean(gaps),
+      probe_farm_ms_overlapping_learn=mean(overlap),
+      launches_per_learning_superstep=per_learning_superstep,
+      train_launches=counts, q_max_abs_err=q_err,
+      peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=card())),
+      flush=True)
+  return counts
+
+
+def phase_overlap_path(dev):
+  """OVERLAP_MAIN: MAIN's dqn/pong trainer with overlap_env_learn=True
+  (learn samples the replay before this superstep's insert, which follows
+  the learn block). 20 warm, 40 timed and 20 fenced supersteps from MAIN's
+  seed. Checks the loss, the Q-values, the launches per learning superstep
+  (K1 1, K2 1, K3a 2, K3b 1) and that learning starts one superstep after
+  MAIN's at the same min fill. Returns the launch counts."""
+  from dqn_zoo_torch import kernels
+  from dqn_zoo_torch.engine import Engine
+  from dqn_zoo_torch.run.train import build_engine
+
+  config = build_engine("dqn", "pong", num_envs=128,
+                        replay_capacity=1_000_000,
+                        min_replay_capacity_fraction=0.002,
+                        device="cuda").config
+  engine = Engine(dataclasses.replace(config, overlap_env_learn=True),
+                  device="cuda")
+  cfg = engine.config
+  state = engine.init(seed=1)  # MAIN's
+  kernels.reset_counts()
+  warm = 20
+  first = None
+  for i in range(warm):
+    state = engine.superstep(state)
+    if first is None and state.telemetry.learn_steps:
+      first = i
+  main_first = MAIN_READINGS["first_learning_superstep"]
+  if first is None or first != main_first + 1:
+    fail(f"OVERLAP_MAIN learned first at superstep {first}, MAIN at "
+         f"{main_first}")
+  timed = 40
+  before = kernels.counts()
+  steps_before = state.telemetry.learn_steps
+  t0 = time.perf_counter()
+  state = engine.run(state, timed)
+  torch.cuda.synchronize()
+  t_run = time.perf_counter() - t0
+  after = kernels.counts()
+  if state.telemetry.learn_steps - steps_before != timed:
+    fail(f"OVERLAP_MAIN took {state.telemetry.learn_steps - steps_before} "
+         f"learn steps in {timed} timed supersteps")
+  per = {k: (after[k] - before[k]) / timed for k in after
+         if k in PATH_KERNELS["overlap"]}
+  want = {"gather_windows": 1, "pooled_frame_to_84": 1, "dqn_torso_fwd": 2,
+          "dqn_torso_fwd_residuals": 1}
+  if per != want:
+    fail(f"launches per OVERLAP_MAIN learning superstep {per}, "
+         f"expected {want}")
+  split = {}
+  fenced = 20
+  state = engine.run(state, fenced, timings=split)
+  torch.cuda.synchronize()
+  counts = kernels.counts()
+  m = engine.metrics(state)
+  if m.learn_steps < 20 or not math.isfinite(m.last_loss):
+    fail(f"OVERLAP_MAIN: {m.learn_steps} learn steps, loss {m.last_loss}")
+  if cfg.batch_size != 1024:
+    fail(f"unexpected overlap config {cfg}")
+  q_err = _dqn_q_against_plain(engine.network, state.online_params,
+                               state.stack.frames)
+  print("OVERLAP_MAIN " + json.dumps(dict(
+      supersteps=warm + timed + fenced, learn_steps=m.learn_steps,
+      last_loss=m.last_loss, first_learning_superstep=first,
+      main_first_learning_superstep=main_first,
+      timed_supersteps=timed, ms_per_superstep=1e3 * t_run / timed,
+      main_ms_per_superstep=MAIN_READINGS["ms_per_superstep"],
+      main_host_ms_per_other_superstep=MAIN_READINGS[
+          "host_ms_per_other_superstep"],
+      training_env_steps_per_s=timed * cfg.num_envs / t_run,
+      split_ms_per_superstep={k: 1e3 * v / fenced for k, v in split.items()},
+      launches_per_learning_superstep=per, train_launches=counts,
+      q_max_abs_err=q_err,
+      peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=card())),
       flush=True)
   return counts
 
@@ -1978,6 +2210,8 @@ def main() -> int:
                           d, "zaxxon", timed=40, fenced=20,
                           eval_supersteps=100)),
                       ("pil", phase_pil_path),
+                      ("host", phase_host_path),
+                      ("overlap", phase_overlap_path),
                       ("c51", lambda d: phase_learner_path(d, "c51")),
                       ("qrdqn", lambda d: phase_learner_path(d, "qrdqn")),
                       ("double_q", lambda d: phase_learner_path(

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from dqn_zoo_torch.agents.base import AdamState, RMSPropState
+from dqn_zoo_torch.engine.host_env import HostEngineState, HostEnvEngine
 from dqn_zoo_torch.engine.superstep import (Engine, EngineState, PendingRow,
                                             Telemetry, leaves)
 from dqn_zoo_torch.envs.vector import VecEnvState
@@ -125,18 +126,16 @@ def replay_from_jax(replay, frame_size: int, device,
   )
 
 
-def engine_state_from_jax(engine: Engine, state, seed: int = 0
-                          ) -> EngineState:
-  """A whole JAX EngineState → port EngineState (a fresh generator from
-  `seed` replaces the JAX key)."""
+def _learner_fields(engine: Union[Engine, HostEnvEngine], state, seed: int
+                   ) -> dict:
+  """The fields a JAX EngineState and HostEngineState share, on the
+  engine's device (a fresh generator from `seed` replaces the JAX key)."""
   dev = engine.device
   tel = state.telemetry
   gen = torch.Generator(device=dev)
   gen.manual_seed(seed)
-  return EngineState(
-      env=env_state_from_jax(engine, state.env, dev),
+  return dict(
       stack=namedtuple_from_jax(FrameStackState, state.stack, dev),
-      pending=namedtuple_from_jax(PendingRow, state.pending, dev),
       replay=replay_from_jax(state.replay, engine.rcfg.frame_size, dev,
                              engine.rcfg.priority_exponent > 0),
       online_params=params_from_jax(state.online_params, dev,
@@ -148,5 +147,22 @@ def engine_state_from_jax(engine: Engine, state, seed: int = 0
       superstep=int(state.superstep),
       telemetry=Telemetry(
           *(tensor(getattr(tel, f), dev) for f in Telemetry._fields[:-1]),
-          learn_steps=int(tel.learn_steps)),
-  )
+          learn_steps=int(tel.learn_steps)))
+
+
+def engine_state_from_jax(engine: Engine, state, seed: int = 0
+                          ) -> EngineState:
+  """A whole JAX EngineState → port EngineState (a fresh generator from
+  `seed` replaces the JAX key)."""
+  dev = engine.device
+  return EngineState(
+      env=env_state_from_jax(engine, state.env, dev),
+      pending=namedtuple_from_jax(PendingRow, state.pending, dev),
+      **_learner_fields(engine, state, seed))
+
+
+def host_engine_state_from_jax(engine: HostEnvEngine, state, seed: int = 0
+                               ) -> HostEngineState:
+  """A JAX HostEngineState → port HostEngineState (a fresh generator from
+  `seed` replaces the JAX key)."""
+  return HostEngineState(**_learner_fields(engine, state, seed))

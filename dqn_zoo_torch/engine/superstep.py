@@ -13,6 +13,9 @@ B replay rows and runs gated SGD, in the reference's order:
      priorities (prioritized replay); target swap on frame-count boundary
      crossings.
 
+In overlap mode (`EngineConfig.overlap_env_learn`) step 2 runs after step
+6, so learning reads the replay as it was before this superstep's insert.
+
 An agent whose actor takes τ samples (IQN: the fused head, kernel K4a) gets
 them from the draws too: `act_taus`, U[0, 1) of shape (B, τ samples). So
 does a loss that takes τ samples (IQN: K4a forward, K4b and K4c backward):
@@ -64,17 +67,21 @@ class EngineConfig:
   env_config: VectorEnvConfig = VectorEnvConfig()
   resize_method: str = "fast"
   pmap_axis: Optional[str] = None
+  # Overlap mode: learn samples the replay as it was before this
+  # superstep's insert, and the insert runs after the learn block, on the
+  # trees whose priorities that block wrote (so the min-fill gate opens one
+  # superstep later). A sampled batch never holds the row inserted in the
+  # same superstep.
   overlap_env_learn: bool = False
+  # The action-set size of a game with no device implementation (an
+  # ALE-only cartridge driven through engine/host_env.py): the engine then
+  # builds no device env and sizes the network from this. 0 = the device
+  # game's own.
   num_actions: int = 0
 
   def __post_init__(self):
-    if self.overlap_env_learn:
-      raise NotImplementedError("overlap_env_learn is not ported yet.")
     if self.pmap_axis is not None:
       raise NotImplementedError("pmap_axis (multi-device) is not ported yet.")
-    if self.num_actions:
-      raise NotImplementedError("the host env (num_actions) is not ported "
-                                "yet.")
     if self.agent.compute_dtype != "float32":
       raise NotImplementedError("the port computes in float32 only.")
 
@@ -190,10 +197,20 @@ class Engine:
     self.config = config
     self.spec = config.agent
     self.device = resolve_device(device)
-    self.game = get_game(config.game)
-    self.env = VectorAtariEnv(self.game, config.num_envs, config.env_config,
-                              self.device)
-    self.network = self.spec.make_network(self.spec, self.game.num_actions)
+    try:
+      self.game = get_game(config.game)
+    except KeyError:
+      if config.num_actions <= 0:
+        raise
+      self.game = None  # an ALE-only cartridge: the host env steps it
+    if self.game is not None:
+      self.env = VectorAtariEnv(self.game, config.num_envs,
+                                config.env_config, self.device)
+      self.num_actions = self.game.num_actions
+    else:
+      self.env = None
+      self.num_actions = config.num_actions
+    self.network = self.spec.make_network(self.spec, self.num_actions)
     self.optimizer = make_optimizer(self.spec)
     self.rcfg = config.replay_config()
 
@@ -234,7 +251,7 @@ class Engine:
       p.requires_grad_(True)
     target = _tree_map(lambda p: p.detach().clone(), online)
     return EngineState(
-        env=self.env.init(gen),
+        env=self.env.init(gen) if self.env is not None else None,
         stack=prep.frame_stack_init(b, dev),
         pending=PendingRow(
             frame=torch.zeros((b, 84, 84), dtype=torch.uint8, device=dev),
@@ -268,11 +285,17 @@ class Engine:
   def draw(self, gen: torch.Generator, env: Optional[VectorAtariEnv] = None,
            learn: bool = True) -> SuperstepDraws:
     env = env or self.env
-    u, a = epsilon_greedy_draws(env.batch_size, self.game.num_actions, gen,
-                                self.device)
+    return self.agent_draws(gen, env.batch_size, learn)._replace(
+        env=env.draws(gen))
+
+  def agent_draws(self, gen: torch.Generator, batch: int,
+                  learn: bool = True) -> SuperstepDraws:
+    """The draws of `draw` but the env's (left None), in the same order:
+    the env's come last."""
+    u, a = epsilon_greedy_draws(batch, self.num_actions, gen, self.device)
     act_taus = act_noise = None
     if self.spec.act_takes_taus:
-      act_taus = torch.rand((env.batch_size, self.spec.tau_samples_policy),
+      act_taus = torch.rand((batch, self.spec.tau_samples_policy),
                             generator=gen, device=self.device)
     if self.spec.act_takes_noise:
       act_noise = self.network.draw_noise(gen, self.device)
@@ -293,8 +316,8 @@ class Engine:
         both = self.network.draw_noise(gen, self.device, (shape[0], 3))
         loss_noise = tuple(type(both)(*(x[:, j] for x in both))
                            for j in range(3))
-    return SuperstepDraws(u, a, sample_u, env.draws(gen), act_taus,
-                          loss_taus, act_noise, loss_noise)
+    return SuperstepDraws(u, a, sample_u, None, act_taus, loss_taus,
+                          act_noise, loss_noise)
 
   def _act(self, params, obs, epsilon, draws: SuperstepDraws):
     args = (self.spec, self.network, params, obs, epsilon, draws.explore_u,
@@ -325,6 +348,27 @@ class Engine:
       dr.replay_update_priorities(self.rcfg, replay, sampled, out.priorities)
     return out.loss.detach()
 
+  def learn(self, replay, target, online, opt_state,
+            draws: SuperstepDraws) -> torch.Tensor:
+    """The learn block: `updates_per_learn` SGD steps, each with its own
+    replay draws, τ sets and noise sets; returns the last loss."""
+    for u in range(self.config.updates_per_learn):
+      args = tuple(t[u] for t in draws.loss_taus or ()) + tuple(
+          type(n)(*(x[u] for x in n)) for n in draws.loss_noise or ())
+      loss = self._sgd_update(replay, target, online, opt_state,
+                              draws.sample_u[u], args)
+    return loss
+
+  def swap_target(self, target, online, frames_before: int,
+                  frames_after: int) -> None:
+    """Copies the online parameters into the target's where the env frame
+    count crossed a multiple of the agent's target period."""
+    period = max(1, self.spec.target_network_update_period)
+    if frames_before // period != frames_after // period:
+      with torch.no_grad():
+        for t, o in zip(leaves(target), leaves(online)):
+          t.copy_(o)
+
   # --- the superstep -----------------------------------------------------------
 
   def superstep(self, state: EngineState,
@@ -343,12 +387,17 @@ class Engine:
                                 eps, draws)
     clock.lap("act")
 
-    # 2. insert the pending row, now that its action exists.
+    # 2. insert the pending row, now that its action exists (in overlap
+    # mode after the learn block).
     p = state.pending
-    replay = dr.replay_insert(self.rcfg, state.replay, p.frame,
-                              p.stack_count, actions, p.reward, p.discount,
-                              p.is_terminal)
-    clock.lap("insert")
+
+    def insert(replay):
+      replay = dr.replay_insert(self.rcfg, replay, p.frame, p.stack_count,
+                                actions, p.reward, p.discount, p.is_terminal)
+      clock.lap("insert")
+      return replay
+
+    replay = state.replay if cfg.overlap_env_learn else insert(state.replay)
 
     # 3-4. env step + preprocessing.
     env_state, out = self.env.step(state.env, actions, draws.env)
@@ -378,20 +427,16 @@ class Engine:
     min_fill = self.spec.min_replay_capacity_fraction * cfg.replay_capacity
     last_loss, nupd = tel.last_loss, 0
     if size >= min_fill and state.superstep % cfg.learn_every == 0:
-      for u in range(cfg.updates_per_learn):
-        args = tuple(t[u] for t in draws.loss_taus or ()) + tuple(
-            type(n)(*(x[u] for x in n)) for n in draws.loss_noise or ())
-        last_loss = self._sgd_update(replay, state.target_params, online,
-                                     opt_state, draws.sample_u[u], args)
+      last_loss = self.learn(replay, state.target_params, online, opt_state,
+                             draws)
       nupd = cfg.updates_per_learn
 
     # 7. target swap on frame-count boundary crossings.
-    period = max(1, self.spec.target_network_update_period)
-    if state.env_frames // period != env_frames // period:
-      with torch.no_grad():
-        for t, o in zip(leaves(state.target_params), leaves(online)):
-          t.copy_(o)
+    self.swap_target(state.target_params, online, state.env_frames,
+                     env_frames)
     clock.lap("learn")
+    if cfg.overlap_env_learn:
+      replay = insert(replay)
 
     # 8. telemetry.
     ep_ret = tel.episode_return + out.raw_reward_sum

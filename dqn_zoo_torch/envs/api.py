@@ -90,5 +90,14 @@ def get_game(name: str) -> Game:
                                         skiing, space_invaders,
                                         star_gunner, tennis, zaxxon)
   if name not in _REGISTRY:
+    from dqn_zoo_torch.run.atari_data import ATARI_GAMES
+    if name in ATARI_GAMES:
+      raise KeyError(
+          f"{name!r} is an Atari-57 cartridge without a device "
+          f"implementation; device games: {sorted(_REGISTRY)}. The full "
+          "cartridge runs on the C++ farm's ALE backend through "
+          "engine/host_env.py: build it with `make -C cpp ale` and set "
+          "DZ_ENV_LIB=libdz_env_ale.so (or an absolute path) and "
+          "DZ_ALE_ROM_DIR=<roms> (envs/cpp_bridge.py).")
     raise KeyError(f"Unknown game {name!r}; have {sorted(_REGISTRY)}.")
   return _REGISTRY[name]

@@ -782,3 +782,108 @@ def test_game_steps_at_grid_edges_on_the_card_match_the_cpu(dev, name):
   for a, w in zip(got[1:] + tuple(got[0]), want[1:] + tuple(want[0])):
     assert torch.equal(a.cpu(), w)
   assert events(want) > 100
+
+
+# --- the host env path ---------------------------------------------------------
+
+
+def _to_device(tree, d, memo=None):
+  """A copy of `tree` (tensors inside NamedTuples, tuples, lists and dicts)
+  on `d`; leaves that are not tensors (counts, generators) stay. What is
+  shared stays shared (uniform replay's value tree is its indicator
+  tree)."""
+  memo = {} if memo is None else memo
+  if id(tree) in memo:
+    return memo[id(tree)]
+  if isinstance(tree, torch.Tensor):
+    out = tree.detach().to(d, copy=True).requires_grad_(tree.requires_grad)
+  elif isinstance(tree, dict):
+    out = {k: _to_device(v, d, memo) for k, v in tree.items()}
+  elif isinstance(tree, list):
+    out = [_to_device(x, d, memo) for x in tree]
+  elif isinstance(tree, tuple):
+    items = [_to_device(x, d, memo) for x in tree]
+    out = type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+  else:
+    return tree
+  memo[id(tree)] = out
+  return out
+
+
+def test_farm_uploads_every_group_to_the_card_double_buffered(dev):
+  """64 groups of 128 pong envs uploaded from the two pinned buffer sets
+  with no synchronize in the loop, each copy queued behind ~1 ms of card
+  work: the farm must wait for a set's copy before writing into it again,
+  or a later group lands in an earlier group's upload."""
+  from dqn_zoo_torch.envs.cpp_bridge import CppVectorEnv
+  b = 128
+  env = CppVectorEnv("pong", b, seed=2, device=dev)
+  rng = np.random.RandomState(3)
+  host, card = [], []
+  for _ in range(64):
+    group = env.step(rng.randint(0, 6, b).astype(np.int32))
+    host.append((group.obs84.copy(), group.reward_sum.copy(),
+                 group.discount_prod.copy(), group.is_first, group.is_last,
+                 group.frames_used))
+    torch.cuda._sleep(2_000_000)
+    card.append(env.upload(group))
+  torch.cuda.synchronize()
+  for want, got in zip(host, card):
+    for w, g in zip(want, got):
+      np.testing.assert_array_equal(g.cpu().numpy(), w)
+  env.close()
+
+
+def test_host_half_step_on_the_card_matches_the_cpu(dev):
+  """The dqn/pong host engine at 8 envs on the card (K1, K3a, K3b) and on
+  the CPU (their plain versions), from one state and the same draws, each
+  over its own farm of the same seed: actions, replay rows and telemetry
+  counts equal, the loss within rtol 1e-4 and the parameters within
+  test_torch_slice's bounds."""
+  import dataclasses
+  from dqn_zoo_torch.agents import get_agent
+  from dqn_zoo_torch.engine import EngineConfig
+  from dqn_zoo_torch.engine.host_env import HostEnvEngine
+  from dqn_zoo_torch.engine.superstep import leaves
+  from dqn_zoo_torch.envs.cpp_bridge import CppVectorEnv
+  b = 8
+  spec = dataclasses.replace(get_agent("dqn"),
+                             target_network_update_period=96)
+  cfg = EngineConfig(agent=spec, game="pong", num_envs=b, slots_per_stream=16,
+                     batch_size=16, total_train_frames=20_000)
+  engines = {d: HostEnvEngine(cfg, CppVectorEnv(
+      "pong", b, seed=6, num_threads=2, episode_frame_cap=64, device=d),
+      device=d) for d in ("cpu", dev)}
+  states = {"cpu": engines["cpu"].init(0)}
+  states[dev] = _to_device(states["cpu"], dev)
+  groups = {d: e.env.step(np.zeros((b,), np.int32))
+            for d, e in engines.items()}
+  gen = torch.Generator().manual_seed(3)
+  for step in range(16):
+    draws = engines["cpu"].draw(gen)
+    actions = {}
+    for d, e in engines.items():
+      states[d], actions[d] = e.step(
+          states[d], groups[d], draws if d == "cpu" else _to_device(draws, d))
+    np.testing.assert_array_equal(actions[dev], actions["cpu"])
+    c, g = states["cpu"], states[dev]
+    for f in ("frames", "stack_count", "action", "reward", "discount",
+              "is_terminal", "row_t"):
+      assert torch.equal(getattr(g.replay, f).cpu(), getattr(c.replay, f)), \
+          (f, step)
+    assert g.env_frames == c.env_frames
+    assert g.telemetry.learn_steps == c.telemetry.learn_steps
+    if c.telemetry.learn_steps:
+      np.testing.assert_allclose(float(g.telemetry.last_loss),
+                                 float(c.telemetry.last_loss), rtol=1e-4)
+    for tree, ref in ((g.online_params, c.online_params),
+                      (g.target_params, c.target_params)):
+      diff = torch.cat([(x.cpu() - w).detach().abs().flatten()
+                        for x, w in zip(leaves(tree), leaves(ref))])
+      assert float(diff.max()) <= 5e-5, (step, float(diff.max()))
+      assert float((diff <= 2e-6).float().mean()) >= 0.999, step
+    for f in ("episode_return", "completed_count", "completed_return_sum"):
+      assert torch.equal(getattr(g.telemetry, f).cpu(),
+                         getattr(c.telemetry, f)), (f, step)
+    groups = {d: e.env.step(actions[d]) for d, e in engines.items()}
+  assert states["cpu"].telemetry.learn_steps >= 8

@@ -136,13 +136,14 @@ def test_vector_pong_matches_jax_step_for_step():
 # --- the slice: several supersteps of both engines ------------------------------
 
 
-def _engines(num_envs=4):
+def _engines(num_envs=4, overlap_env_learn=False):
   overrides = dict(target_network_update_period=48)
   jspec = dataclasses.replace(jget_agent("dqn"), **overrides)
   tspec = dataclasses.replace(get_agent("dqn"), **overrides)
   common = dict(game="pong", num_envs=num_envs, slots_per_stream=16,
                 batch_size=8, learn_every=1, updates_per_learn=1,
-                total_train_frames=20_000)
+                total_train_frames=20_000,
+                overlap_env_learn=overlap_env_learn)
   jeng = JEngine(JEngineConfig(agent=jspec, env_config=JEnvConfig(
       episode_frame_cap=36), **common))
   teng = Engine(EngineConfig(agent=tspec, env_config=VectorEnvConfig(
@@ -236,7 +237,16 @@ def test_eval_supersteps_match_jax():
 def test_modes_not_ported_yet_raise():
   spec = get_agent("dqn")
   base = dict(agent=spec, game="pong", num_envs=2, slots_per_stream=16)
-  for extra in (dict(overlap_env_learn=True), dict(pmap_axis="d"),
-                dict(num_actions=6)):
+  for extra in (dict(pmap_axis="d"), dict(agent=dataclasses.replace(
+      spec, compute_dtype="bfloat16"))):
     with pytest.raises(NotImplementedError):
-      EngineConfig(**base, **extra)
+      EngineConfig(**{**base, **extra})
+  # Overlap mode and the host env's action count are ported.
+  eng = Engine(EngineConfig(**base, overlap_env_learn=True), device="cpu")
+  assert eng.config.overlap_env_learn and eng.num_actions == 6
+  eng = Engine(EngineConfig(**{**base, "game": "krull"}, num_actions=4),
+               device="cpu")
+  assert eng.game is None and eng.env is None and eng.num_actions == 4
+  assert eng.init(0).env is None
+  with pytest.raises(KeyError, match="ALE backend"):
+    Engine(EngineConfig(**{**base, "game": "krull"}), device="cpu")

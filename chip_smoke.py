@@ -182,6 +182,9 @@ PATH_KERNELS = {
     "host": ("gather_windows", "dqn_torso_fwd", "dqn_torso_fwd_residuals"),
     "overlap": ("gather_windows", "pooled_frame_to_84", "dqn_torso_fwd",
                 "dqn_torso_fwd_residuals"),
+    # The host replay gathers and the processor resizes on the host: no K1,
+    # no K2.
+    "host_agent": ("dqn_torso_fwd", "dqn_torso_fwd_residuals"),
 }
 # The games GAMES holds card against CPU, beside pong, catch and seaquest.
 NEW_GAMES = ("breakout", "space_invaders", "freeway", "asterix", "atlantis",
@@ -397,11 +400,14 @@ def phase_kernels(dev):
       h = torch.relu(torch.nn.functional.conv2d(h, wt, bias, stride=st))
     return h
 
-  # K3a at B = 4 (eval), 128 (act) and 1024 (target). The kernel's products
-  # run in 3xTF32 (f32-accurate), the plain version's in f32 with TF32 off:
-  # the sums differ in order and rounding, so rtol 1e-4 holds with room.
-  # Two launches give the same bits.
-  for b in (4, 128, 1024):
+  # K3a at B = 1 (the host agent's act), 4 (eval), 32 (the host agent's
+  # target net), 128 (act) and 1024 (target). The kernel's products run in
+  # 3xTF32 (f32-accurate), the plain version's in f32 with TF32 off: the
+  # sums differ in order and rounding, so rtol 1e-4 holds with room. Two
+  # launches give the same bits.
+  k3a_roles = {1: "host agent act", 4: "eval", 32: "host agent target",
+               128: "act", 1024: "target"}
+  for b, role in k3a_roles.items():
     x = torch.randint(0, 256, (b, 84, 84, 4), generator=gen, device=dev,
                       dtype=torch.uint8)
     with torch.no_grad():
@@ -418,53 +424,63 @@ def phase_kernels(dev):
           "rtol 1e-4, atol 1e-5",
           time_ms(kernel), time_ms(lambda: torso_cuda.torso_plain(*ws, x)),
           time_ms(lambda: library(xn)), nbytes, flops,
-          graph_ms=graph_ms(kernel), bit_identical_repeat=True)
+          graph_ms=graph_ms(kernel), bit_identical_repeat=True, role=role)
     if b == 1024:
       results["dqn_torso_fwd"] = line
 
-  # K3b at B = 1024 (the online net under grad), and the gradients through
-  # its autograd Function. Where a pre-activation lies within f32 rounding
-  # of 0, the kernel and the plain forward may take different ReLU branches
-  # (a few of the 17 M activations at this size), and each such flip moves
-  # a weight gradient by a whole term. So the reference for the gradients
-  # is autograd of the plain convolutions with the kernel's own ReLU masks:
-  # it checks the backward independently of those flips, and must agree to
-  # a relative Frobenius error of 1e-4. The flips are counted and printed.
-  got, z1, z2 = torso_cuda.torso_forward(ws, x, residuals=True)
-  want, wz1, wz2 = torso_cuda.torso_plain_residuals(*ws, x)
-  for a, e in ((got, want), (z1, wz1), (z2, wz2)):
-    torch.testing.assert_close(a, e, rtol=1e-4, atol=1e-5)
-  if not all(torch.equal(a, e) for a, e in zip(
-      (got, z1, z2), torso_cuda.torso_forward(ws, x, residuals=True))):
-    fail("K3b: two launches differ")
-  flips = sum(int(((a > 0) != (e > 0)).sum())
-              for a, e in ((got, want), (z1, wz1), (z2, wz2)))
-  masks = [(t > 0).float() for t in (z1, z2, got.reshape(-1, 7, 7, 64))]
+  # K3b at B = 32 (the host agent's online net) and 1024 (the online net
+  # under grad), and the gradients through its autograd Function. Where a
+  # pre-activation lies within f32 rounding of 0, the kernel and the plain
+  # forward may take different ReLU branches (a few of the 17 M activations
+  # at B = 1024), and each such flip moves a weight gradient by a whole
+  # term. So the reference for the gradients is autograd of the plain
+  # convolutions with the kernel's own ReLU masks: it checks the backward
+  # independently of those flips, and must agree to a relative Frobenius
+  # error of 1e-4. The flips are counted and printed.
+  for b, role in ((32, "host agent online"), (1024, "online")):
+    if b != x.shape[0]:
+      x = torch.randint(0, 256, (b, 84, 84, 4), generator=gen, device=dev,
+                        dtype=torch.uint8)
+      xn = x.permute(0, 3, 1, 2).float().mul(1.0 / 255.0).contiguous()
+    got, z1, z2 = torso_cuda.torso_forward(ws, x, residuals=True)
+    want, wz1, wz2 = torso_cuda.torso_plain_residuals(*ws, x)
+    for a, e in ((got, want), (z1, wz1), (z2, wz2)):
+      torch.testing.assert_close(a, e, rtol=1e-4, atol=1e-5)
+    if not all(torch.equal(a, e) for a, e in zip(
+        (got, z1, z2), torso_cuda.torso_forward(ws, x, residuals=True))):
+      fail(f"K3b at B={b}: two launches differ")
+    flips = sum(int(((a > 0) != (e > 0)).sum())
+                for a, e in ((got, want), (z1, wz1), (z2, wz2)))
+    masks = [(t > 0).float() for t in (z1, z2, got.reshape(-1, 7, 7, 64))]
 
-  dy = torch.randn((1024, 3136), generator=gen, device=dev)
-  pa = [t.clone().requires_grad_(True) for t in ws]
-  pb = [t.clone().requires_grad_(True) for t in ws]
-  ga = torch.autograd.grad((torso_cuda.dqn_torso(*pa, x) * dy).sum(), pa)
-  gb = torch.autograd.grad(
-      (torso_cuda.torso_plain_masked(*pb, x, masks) * dy).sum(), pb)
-  grad_err = max(
-      float(torch.linalg.vector_norm(a - e) / torch.linalg.vector_norm(e))
-      for a, e in zip(ga, gb))
-  print(f"K3b gradients: relative Frobenius error {grad_err:.3e} "
-        f"(ReLU branch flips against the plain forward: {flips})",
-        flush=True)
-  if not grad_err <= 1e-4:
-    fail(f"K3b gradients differ from the plain version's: {grad_err}")
-  nbytes, flops = torso_cuda.bound_counts(1024, residuals=True)
-  with torch.no_grad():
-    results["dqn_torso_fwd_residuals"] = report(
-        "dqn_torso_fwd_residuals", "B=1024",
-        float((got - want).abs().max()), "rtol 1e-4, atol 1e-5; grads relative Frobenius <= 1e-4",
-        time_ms(lambda: torso_cuda.torso_forward(ws, x, residuals=True)),
-        time_ms(lambda: torso_cuda.torso_plain_residuals(*ws, x)),
-        time_ms(lambda: library(xn)), nbytes, flops,
-        grad_rel_frobenius_err=grad_err, relu_branch_flips=flips,
-        bit_identical_repeat=True)
+    dy = torch.randn((b, 3136), generator=gen, device=dev)
+    pa = [t.clone().requires_grad_(True) for t in ws]
+    pb = [t.clone().requires_grad_(True) for t in ws]
+    ga = torch.autograd.grad((torso_cuda.dqn_torso(*pa, x) * dy).sum(), pa)
+    gb = torch.autograd.grad(
+        (torso_cuda.torso_plain_masked(*pb, x, masks) * dy).sum(), pb)
+    grad_err = max(
+        float(torch.linalg.vector_norm(a - e) / torch.linalg.vector_norm(e))
+        for a, e in zip(ga, gb))
+    print(f"K3b gradients at B={b}: relative Frobenius error "
+          f"{grad_err:.3e} (ReLU branch flips against the plain forward: "
+          f"{flips})", flush=True)
+    if not grad_err <= 1e-4:
+      fail(f"K3b gradients at B={b} differ from the plain version's: "
+           f"{grad_err}")
+    nbytes, flops = torso_cuda.bound_counts(b, residuals=True)
+    with torch.no_grad():
+      line = report(
+          "dqn_torso_fwd_residuals", f"B={b}",
+          float((got - want).abs().max()),
+          "rtol 1e-4, atol 1e-5; grads relative Frobenius <= 1e-4",
+          time_ms(lambda: torso_cuda.torso_forward(ws, x, residuals=True)),
+          time_ms(lambda: torso_cuda.torso_plain_residuals(*ws, x)),
+          time_ms(lambda: library(xn)), nbytes, flops,
+          grad_rel_frobenius_err=grad_err, relu_branch_flips=flips,
+          bit_identical_repeat=True, role=role)
+    if b == 1024:
+      results["dqn_torso_fwd_residuals"] = line
 
   # K4a: the fused IQN head at the published widths (latent 64, D = 3136,
   # H = 512), inputs at the scale of the reference's own test of its kernel.
@@ -824,6 +840,14 @@ def phase_main_path(dev):
       ms_per_superstep=summary["ms_per_superstep"],
       host_ms_per_other_superstep=summary["host_ms_per_other_superstep"])
   print("MAIN " + json.dumps(summary), flush=True)
+
+  # Three learning supersteps under the profiler (after the counts were
+  # read: they are not the path's).
+  def supersteps():
+    nonlocal state
+    for _ in range(3):
+      state = engine.superstep(state)
+  traced_window("MAIN", supersteps, PATH_KERNELS["dqn"])
   return counts
 
 
@@ -1360,6 +1384,102 @@ def _dqn_q_against_plain(network, params, obs) -> float:
     fail(f"bad Q-values {tuple(q.shape)}")
   torch.testing.assert_close(q, plain, rtol=1e-4, atol=1e-5)
   return float((q - plain).abs().max())
+
+
+# Each hand-written kernel's name in a profiler trace (K3a and K3b are the
+# two instantiations of one template).
+TRACE_NAMES = {
+    "gather_windows": ("gather_windows_kernel",),
+    "pooled_frame_to_84": ("pooled_frame_to_84_kernel",),
+    "dqn_torso_fwd": ("dqn_torso_kernel<false>", "dqn_torso_kernel<(bool)0>"),
+    "dqn_torso_fwd_residuals": ("dqn_torso_kernel<true>",
+                                "dqn_torso_kernel<(bool)1>"),
+}
+DEVICE_EVENT_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _busy_ms(intervals, w0: float, w1: float) -> float:
+  """The length of the union of (start, end) intervals clipped to
+  [w0, w1], in the trace's µs, as ms."""
+  busy, end = 0.0, w0
+  for a, b in sorted(intervals):
+    a, b = max(a, end), min(b, w1)
+    if b > a:
+      busy += b - a
+      end = b
+  return busy / 1e3
+
+
+def traced_window(label: str, fn, expect) -> dict:
+  """TRACE: runs `fn()` under profiling.trace (torch.profiler, CPU and
+  CUDA activity) in a temporary directory, inside one record_function span
+  that ends in a synchronize, then deletes the directory. Prints one TRACE
+  line: the top ten device operations by device time (name, calls, ms),
+  the device-busy share of the span (the union of kernel, copy and memset
+  intervals over the span's wall time), the trace file's bytes, and the
+  trace's events against the launch counters for each kernel of `expect`.
+  Fails if the trace holds no CUDA kernel event or if a kernel of `expect`
+  that the span launched has no event."""
+  import shutil
+  import tempfile
+  from dqn_zoo_torch import kernels
+  from dqn_zoo_torch.utils import profiling
+
+  tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+  try:
+    before = kernels.counts()
+    t0 = time.perf_counter()
+    with profiling.trace(tmp) as prof:
+      with torch.profiler.record_function("chip_smoke_window"):
+        fn()
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in kernels.counts().items()}
+    nbytes = os.path.getsize(prof.trace_path)
+    with open(prof.trace_path) as f:
+      events = json.load(f)["traceEvents"]
+  finally:
+    shutil.rmtree(tmp, ignore_errors=True)
+  spans = [e for e in events if e.get("name") == "chip_smoke_window"
+           and e.get("cat") == "user_annotation"]
+  if len(spans) != 1:
+    fail(f"TRACE {label}: {len(spans)} window spans in the trace")
+  w0 = float(spans[0]["ts"])
+  w1 = w0 + float(spans[0]["dur"])
+  device = [e for e in events if e.get("cat") in DEVICE_EVENT_CATS
+            and "dur" in e]
+  kernel_events = [e for e in device if e["cat"] == "kernel"]
+  if not kernel_events:
+    fail(f"TRACE {label}: no CUDA kernel event in the trace (CUPTI gave "
+         "no device activity)")
+  by_name = {}
+  for e in device:
+    calls, us = by_name.get(e["name"], (0, 0.0))
+    by_name[e["name"]] = (calls + 1, us + float(e["dur"]))
+  top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+  hand_written = {}
+  for k in expect:
+    n = sum(1 for e in kernel_events
+            if any(p in e["name"] for p in TRACE_NAMES[k]))
+    hand_written[k] = dict(trace_events=n, launches=launched[k])
+    if launched[k] and not n:
+      fail(f"TRACE {label}: {k} launched {launched[k]} times in the window, "
+           "but the trace has no event of it")
+    if not launched[k]:
+      fail(f"TRACE {label}: the window launched no {k}")
+  busy = _busy_ms([(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in device], w0, w1)
+  line = dict(
+      window=label, window_ms=(w1 - w0) / 1e3,
+      host_ms_with_profiler_and_export=1e3 * wall_s,
+      device_busy_ms=busy, device_busy_share=busy / ((w1 - w0) / 1e3),
+      kernel_events=len(kernel_events), device_events=len(device),
+      trace_file_bytes=nbytes, hand_written=hand_written,
+      top_device_ops=[dict(name=n[:100], calls=c, ms=us / 1e3)
+                      for n, (c, us) in top],
+      card=card())
+  print("TRACE " + json.dumps(line), flush=True)
+  return line
 
 
 # What MAIN read that OVERLAP_MAIN is held against or printed beside.
@@ -2155,6 +2275,147 @@ def phase_resume_path(dev):
   return counts
 
 
+def phase_host_agent_path(dev, fill: int = 2200, timed: int = 2400,
+                          fenced: int = 1400):
+  """HOST_AGENT: the reference's single-stream agent surface at full width.
+
+  HostAgent(get_agent("dqn"), 6, ...) — the Nature DQN, batch 32, learn
+  period 16, target period 40,000 frames, centred RMSProp — over
+  GameEnvironment("pong") on the card and processors.atari(), driven by
+  parts.run_loop with make_default_trackers. Replay capacity 1e6 with
+  compressed observations, as the reference runs Atari (the ring holds
+  only what was added); min fill 0.0005 of it (500 transitions, ~2,000
+  frames), so that learning starts in the run. `fill` frames, then
+  `timed` frames unfenced (frames/s), then `fenced` frames with each of
+  env step, processor, act, replay add, replay sample and learn fenced by
+  a synchronize (PhaseTimer); then TRACE of 20 frames that hold a learn
+  step. Checks: a finite loss and >= 200 learn steps; the Q-values of the
+  act on one observation against the plain torso; K3a once a learn step
+  (target) and once an act (B = 1), K3b once a learn step; K1 and K2 never
+  (the host replay stacks transitions in NumPy, the processor resizes on
+  the host). Returns the launch counts."""
+  import itertools
+
+  import numpy as np
+  from dqn_zoo_torch import kernels, parts, processors
+  from dqn_zoo_torch.agents import get_agent
+  from dqn_zoo_torch.envs.dm_adapter import GameEnvironment
+  from dqn_zoo_torch.host_agent import HostAgent
+  from dqn_zoo_torch.utils.profiling import PhaseTimer
+
+  spec = dataclasses.replace(get_agent("dqn"),
+                             min_replay_capacity_fraction=0.0005)
+  if (spec.batch_size, spec.learn_period,
+      spec.target_network_update_period) != (32, 16, 40_000):
+    fail(f"unexpected dqn schedule {spec}")
+  env = GameEnvironment("pong", seed=1, device=dev)
+  preprocessor = processors.atari()
+  agent = HostAgent(spec, env.action_spec().num_values,
+                    np.zeros((84, 84, 4), np.uint8), seed=1,
+                    preprocessor=preprocessor, replay_capacity=1_000_000,
+                    compress_state=True, device=dev)
+
+  # Counters and, for the fenced window, timers around the agent's parts.
+  timer = PhaseTimer()
+  calls = {"act": 0, "learn": 0}
+  fence = {"on": False}
+  params = agent.online_params
+
+  def wrap(name, fn, block_on=None, count=None):
+    def run(*args, **kwargs):
+      if count:
+        calls[count] += 1
+      if not fence["on"]:
+        return fn(*args, **kwargs)
+      with timer(name, block_on=block_on):
+        return fn(*args, **kwargs)
+    return run
+
+  last = {}
+
+  def process(timestep):
+    out = preprocessor(timestep)
+    if out is not None:
+      last["observation"] = out.observation
+    return out
+
+  env.step = wrap("env_step", env.step, block_on=params)
+  env.reset = wrap("env_reset", env.reset, block_on=params)
+  agent._preprocessor = wrap("processor", process)
+  agent._act = wrap("act", agent._act, block_on=params, count="act")
+  agent._learn = wrap("learn", agent._learn, block_on=params, count="learn")
+  agent._replay.add = wrap("replay_add", agent._replay.add)
+  agent._replay.sample = wrap("replay_sample", agent._replay.sample)
+
+  loop = parts.run_loop(agent, env)
+  trackers = parts.make_default_trackers(agent)
+  torch.cuda.synchronize()
+  kernels.reset_counts()
+  t0 = time.perf_counter()
+  parts.generate_statistics(trackers, itertools.islice(loop, fill))
+  torch.cuda.synchronize()
+  fill_s = time.perf_counter() - t0
+  learn_before, act_before = calls["learn"], calls["act"]
+  counts_before = kernels.counts()
+  t0 = time.perf_counter()
+  stats = parts.generate_statistics(trackers, itertools.islice(loop, timed))
+  torch.cuda.synchronize()
+  timed_s = time.perf_counter() - t0
+  timed_learns = calls["learn"] - learn_before
+  timed_acts = calls["act"] - act_before
+  timed_counts = {k: v - counts_before[k] for k, v in kernels.counts().items()}
+  fence["on"] = True
+  parts.generate_statistics(trackers, itertools.islice(loop, fenced))
+  fence["on"] = False
+  torch.cuda.synchronize()
+  counts = kernels.counts()
+  learns, acts = calls["learn"], calls["act"]
+
+  loss = agent._statistics.get("loss", float("nan"))
+  if learns < 200 or not math.isfinite(loss):
+    fail(f"HOST_AGENT: {learns} learn steps, last loss {loss}")
+  if timed_learns == 0:
+    fail("HOST_AGENT: no learn step in the timed window")
+  want = {"gather_windows": 0, "pooled_frame_to_84": 0,
+          "dqn_torso_fwd": acts + learns, "dqn_torso_fwd_residuals": learns}
+  got = {k: counts.get(k, 0) for k in want}
+  if got != want:
+    fail(f"HOST_AGENT launches {got}, expected {want} ({acts} acts, "
+         f"{learns} learn steps)")
+  for name in PATH_KERNELS["host_agent"]:
+    if counts[name] == 0:
+      fail(f"kernel {name} was not launched on the host agent path")
+  obs = torch.from_numpy(last["observation"][None]).to(dev)
+  q_err = _dqn_q_against_plain(agent.network, agent.online_params, obs)
+
+  # TRACE: 20 frames that hold a learn step (every 16th frame learns).
+  def frames():
+    for _ in itertools.islice(loop, 20):
+      pass
+  learn_before = calls["learn"]
+  traced_window("HOST_AGENT", frames, PATH_KERNELS["host_agent"])
+  if calls["learn"] == learn_before:
+    fail("HOST_AGENT: the traced frames held no learn step")
+
+  split = timer.summary()
+  print("HOST_AGENT " + json.dumps(dict(
+      frames=fill + timed + fenced, fill_frames=fill,
+      fill_frames_per_s=fill / fill_s, timed_frames=timed,
+      timed_frames_per_s=timed / timed_s,
+      timed_learn_steps=timed_learns, timed_acts=timed_acts,
+      timed_ms_per_frame=1e3 * timed_s / timed,
+      timed_launches=timed_counts, fenced_frames=fenced,
+      fenced_split=split, learn_steps=learns, acts=acts, last_loss=loss,
+      replay_size=agent._replay.size,
+      episode_return=stats["episode_return"],
+      num_episodes=stats["num_episodes"],
+      state_value=stats["state_value"], train_launches=counts,
+      q_max_abs_err=q_err,
+      peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=card())),
+      flush=True)
+  return counts
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA card; nothing was run.", file=sys.stderr)
@@ -2219,7 +2480,8 @@ def main() -> int:
                       ("iqn", phase_iqn_path),
                       ("iqn_ms_pacman", lambda d: phase_iqn_path(
                           d, "ms_pacman")),
-                      ("resume", phase_resume_path)):
+                      ("resume", phase_resume_path),
+                      ("host_agent", phase_host_agent_path)):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     path_counts[path] = phase(dev)

@@ -23,10 +23,11 @@ import torch
 from dqn_zoo_torch.agents.base import AdamState, RMSPropState
 from dqn_zoo_torch.engine.host_env import HostEngineState, HostEnvEngine
 from dqn_zoo_torch.engine.superstep import (Engine, EngineState, PendingRow,
-                                            Telemetry, leaves)
+                                            Telemetry)
 from dqn_zoo_torch.envs.vector import VecEnvState
 from dqn_zoo_torch.prep.atari import FrameStackState
 from dqn_zoo_torch.replay.device_replay import ReplayState
+from dqn_zoo_torch.utils.pytree import leaves
 
 
 def tensor(x, device) -> torch.Tensor:
@@ -166,3 +167,35 @@ def host_engine_state_from_jax(engine: HostEnvEngine, state, seed: int = 0
   """A JAX HostEngineState → port HostEngineState (a fresh generator from
   `seed` replaces the JAX key)."""
   return HostEngineState(**_learner_fields(engine, state, seed))
+
+
+def _replay_state_from_jax(state):
+  """A JAX host replay's state with every stored transition re-made as the
+  port's `replay.host.Transition` (a NamedTuple of the same fields); the
+  rest (ids, trees' values, free lists) is NumPy and plain values, as is."""
+  from dqn_zoo_torch.replay.host import Transition
+  storage = state["storage"]
+  items = [(i, Transition(*item) if hasattr(item, "_fields") else item)
+           for i, item in storage["items"]]
+  return {**state, "storage": {**storage, "items": items}}
+
+
+def host_agent_state_from_jax(agent, jax_state, device) -> dict:
+  """A JAX `HostAgent.get_state()` (fetched to the host) → the state the
+  port's `HostAgent.set_state` takes, tensors on `device`.
+
+  The parameters and the optimizer state go through `params_from_jax` and
+  `opt_state_from_jax`; the replay's state and the NumPy `random_state`
+  pass through as NumPy. JAX's threefry `rng_key` has no counterpart: the
+  port's generator keeps its own state (`agent`'s, as it stands)."""
+  return {
+      "generator": agent._generator.get_state(),
+      "frame_t": int(jax_state["frame_t"]),
+      "opt_state": opt_state_from_jax(jax_state["opt_state"], device),
+      "online_params": params_from_jax(jax_state["online_params"], device,
+                                       requires_grad=True),
+      "target_params": params_from_jax(jax_state["target_params"], device),
+      "replay": _replay_state_from_jax(jax_state["replay"]),
+      "max_seen_priority": float(jax_state["max_seen_priority"]),
+      "random_state": jax_state["random_state"],
+  }

@@ -38,7 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, NamedTuple, Optional, Union
+from typing import Any, Dict, NamedTuple, Optional, Union
 
 import torch
 
@@ -51,6 +51,7 @@ from dqn_zoo_torch.envs.vector import (EnvDraws, VecEnvState, VectorAtariEnv,
                                        VectorEnvConfig)
 from dqn_zoo_torch.ops.policy import epsilon_greedy_draws
 from dqn_zoo_torch.replay import device_replay as dr
+from dqn_zoo_torch.utils.pytree import leaves, tree_map
 from dqn_zoo_torch.utils.schedules import linear_schedule
 
 
@@ -183,13 +184,6 @@ class SuperstepDraws(NamedTuple):
   loss_noise: Optional[tuple] = None
 
 
-def leaves(tree) -> List[torch.Tensor]:
-  """Parameter leaves of a nested dict in sorted-key order (JAX's order)."""
-  if isinstance(tree, dict):
-    return [x for k in sorted(tree) for x in leaves(tree[k])]
-  return [tree]
-
-
 class Engine:
   """Builds the train/eval supersteps for one agent+game config."""
 
@@ -249,7 +243,7 @@ class Engine:
     online = self.network.init(gen, dev)
     for p in leaves(online):
       p.requires_grad_(True)
-    target = _tree_map(lambda p: p.detach().clone(), online)
+    target = tree_map(lambda p: p.detach().clone(), online)
     return EngineState(
         env=self.env.init(gen) if self.env is not None else None,
         stack=prep.frame_stack_init(b, dev),
@@ -552,12 +546,6 @@ class Engine:
     for _ in range(num_supersteps):
       state = self.eval_superstep(params, state)
     return state
-
-
-def _tree_map(fn, tree):
-  if isinstance(tree, dict):
-    return {k: _tree_map(fn, v) for k, v in tree.items()}
-  return fn(tree)
 
 
 class _StageClock:

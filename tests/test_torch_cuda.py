@@ -887,3 +887,89 @@ def test_host_half_step_on_the_card_matches_the_cpu(dev):
                          getattr(c.telemetry, f)), (f, step)
     groups = {d: e.env.step(actions[d]) for d, e in engines.items()}
   assert states["cpu"].telemetry.learn_steps >= 8
+
+
+@pytest.mark.parametrize("batch,residuals", [(1, False), (32, False),
+                                             (32, True)])
+def test_k3_at_the_host_agent_shapes(dev, batch, residuals):
+  """The host agent's shapes: K3a at B = 1 (act) and 32 (target), K3b at
+  B = 32 (online, with its gradients against the plain convolutions under
+  the kernel's own ReLU masks)."""
+  ws = _torso_params(dev, 12)
+  x = torch.randint(0, 256, (batch, 84, 84, 4), generator=_gen(13),
+                    device=dev, dtype=torch.uint8)
+  if not residuals:
+    before = torso_cuda.FWD.launches
+    with torch.no_grad():
+      got = torso_cuda.dqn_torso(*ws, x)
+    assert torso_cuda.FWD.launches == before + 1
+    torch.testing.assert_close(got, torso_cuda.torso_plain(*ws, x),
+                               rtol=1e-4, atol=1e-5)
+    return
+  out, z1, z2 = torso_cuda.torso_forward(ws, x, residuals=True)
+  for a, e in zip((out, z1, z2), torso_cuda.torso_plain_residuals(*ws, x)):
+    torch.testing.assert_close(a, e, rtol=1e-4, atol=1e-5)
+  dy = torch.randn((batch, 3136), generator=_gen(14), device=dev)
+  a = [w.clone().requires_grad_(True) for w in ws]
+  b = [w.clone().requires_grad_(True) for w in ws]
+  ga = torch.autograd.grad((torso_cuda.dqn_torso(*a, x) * dy).sum(), a)
+  masks = [(t > 0).float() for t in (z1, z2, out.reshape(-1, 7, 7, 64))]
+  gb = torch.autograd.grad(
+      (torso_cuda.torso_plain_masked(*b, x, masks) * dy).sum(), b)
+  for u, v in zip(ga, gb):
+    assert float(torch.linalg.vector_norm(u - v)
+                 / torch.linalg.vector_norm(v)) <= 1e-4
+
+
+def test_host_agent_learn_steps_on_the_card_match_the_cpu(dev):
+  """dqn's HostAgent on the card (K3a at B = 1 and 32, K3b at 32) and on
+  the CPU (the plain torso), from one state and the same draws, over the
+  same catch timesteps: the action at every frame equal, the loss within
+  rtol 1e-4 and the parameters within test_torch_slice's bounds after each
+  learn step."""
+  import dataclasses
+  from dqn_zoo_torch import processors
+  from dqn_zoo_torch.agents import get_agent
+  from dqn_zoo_torch.engine.superstep import leaves
+  from dqn_zoo_torch.envs.dm_adapter import GameEnvironment
+  from dqn_zoo_torch.host_agent import HostAgent
+  spec = dataclasses.replace(get_agent("dqn"),
+                             min_replay_capacity_fraction=0.1,
+                             target_network_update_period=48)
+  agents = {d: HostAgent(spec, 3, np.zeros((84, 84, 4), np.uint8), seed=0,
+                         preprocessor=processors.atari(),
+                         replay_capacity=200, total_frames=2_000, device=d)
+            for d in ("cpu", dev)}
+  state = agents["cpu"].get_state()
+  agents[dev].set_state({**state,
+                         "generator": agents[dev].get_state()["generator"]})
+  for d, agent in agents.items():
+    # The same draws for both, from CPU generators of one seed.
+    def draw(kind, gen=torch.Generator().manual_seed(7), d=d):
+      if kind != "act":
+        return ()  # dqn's loss draws nothing
+      return (torch.rand((1,), generator=gen).to(d),
+              torch.randint(0, 3, (1,), generator=gen).to(d))
+    agent.draw = draw
+  env = GameEnvironment("catch", seed=1, max_noops=3, device="cpu")
+  timestep, loss, learned = env.reset(), None, 0
+  for frame in range(200):
+    actions = {d: a.step(timestep) for d, a in agents.items()}
+    assert actions[dev] == actions["cpu"], frame
+    c, g = agents["cpu"], agents[dev]
+    if c._statistics.get("loss", loss) != loss:
+      loss, learned = c._statistics["loss"], learned + 1
+      np.testing.assert_allclose(g._statistics["loss"], loss, rtol=1e-4)
+      for tree, ref in ((g.online_params, c.online_params),
+                        (g.target_params, c.target_params)):
+        diff = torch.cat([(x.cpu() - w).detach().abs().flatten()
+                          for x, w in zip(leaves(tree), leaves(ref))])
+        assert float(diff.max()) <= 5e-5, (frame, float(diff.max()))
+        assert float((diff <= 2e-6).float().mean()) >= 0.999, frame
+    if timestep.last():
+      for a in agents.values():
+        a.reset()
+      timestep = env.reset()
+    else:
+      timestep = env.step(actions["cpu"])
+  assert learned >= 5 and agents["cpu"]._replay.size >= 20

@@ -96,7 +96,23 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      --max_run_seconds, the second resuming at the saved superstep; it
      prints the save and restore seconds, the checkpoint bytes and the
      peak memory on the card and the host;
-  7. print the kernels line, the card's name and power limit, and last the
+  7. data parallelism (parallel/distributed.py, run/train_dist.py):
+     DIST_MAIN drives dqn/pong through DistributedTrainer at world size 1
+     over NCCL at MAIN's config (20 warm, 100 timed, 20 fenced supersteps;
+     K1 1, K2 1, K3a 2, K3b 1 a learning superstep), times the gradient
+     all-reduce alone at the net's size, and runs 40 supersteps of the
+     trainer and of a plain Engine from one state under cuDNN's
+     deterministic algorithms, which must agree bit for bit;
+     DIST_TWO_RANKS runs two worker processes of this script
+     (`--dist-worker`) on the one card over gloo (NCCL takes one card a
+     rank): global 128 streams and replay 1e6 split over the two, batch
+     512 each, frame multiplier 2, 20 warm and 40 timed supersteps; the
+     ranks' parameters must be equal bit for bit, their replay frames must
+     differ and the summed metrics must equal the ranks' own; DIST_CLI runs
+     `torchrun --nproc_per_node=1 -m dqn_zoo_torch.run.train
+     --mesh_devices=1` for one train and one eval iteration, with a
+     replay-less rank checkpoint, and reads its 14-column CSV;
+  8. print the kernels line, the card's name and power limit, and last the
      result line {"ok": true, "device": {...}}.
 The launch counters are set to 0 just before each path and read just after;
 each path's peak memory on the card is its own (the peak is reset before
@@ -185,7 +201,17 @@ PATH_KERNELS = {
     # The host replay gathers and the processor resizes on the host: no K1,
     # no K2.
     "host_agent": ("dqn_torso_fwd", "dqn_torso_fwd_residuals"),
+    # dqn/pong through DistributedTrainer: one rank over NCCL, and two
+    # ranks (their launches summed) over gloo on the one card.
+    "dist": ("gather_windows", "pooled_frame_to_84", "dqn_torso_fwd",
+             "dqn_torso_fwd_residuals"),
+    "dist_two_ranks": ("gather_windows", "pooled_frame_to_84",
+                       "dqn_torso_fwd", "dqn_torso_fwd_residuals"),
 }
+# Launches a learning superstep of dqn/pong (act and target: K3a twice).
+DQN_PER_LEARNING_SUPERSTEP = {"gather_windows": 1, "pooled_frame_to_84": 1,
+                              "dqn_torso_fwd": 2,
+                              "dqn_torso_fwd_residuals": 1}
 # The games GAMES holds card against CPU, beside pong, catch and seaquest.
 NEW_GAMES = ("breakout", "space_invaders", "freeway", "asterix", "atlantis",
              "skiing", "assault", "beam_rider", "bowling", "boxing",
@@ -2416,6 +2442,312 @@ def phase_host_agent_path(dev, fill: int = 2200, timed: int = 2400,
   return counts
 
 
+def _free_port() -> int:
+  import socket
+  with socket.socket() as sock:
+    sock.bind(("localhost", 0))
+    return sock.getsockname()[1]
+
+
+def _dqn_launches_per_learning_superstep(tag, before, after, supersteps):
+  per = {k: (after[k] - before[k]) / supersteps for k in after}
+  for name, n in DQN_PER_LEARNING_SUPERSTEP.items():
+    if per[name] != n:
+      fail(f"{tag}: {name} launched {per[name]} times a learning "
+           f"superstep, not {n}")
+  return per
+
+
+def phase_dist_main(dev):
+  """DIST_MAIN: dqn/pong through train_dist.build_trainer and
+  DistributedTrainer at world size 1 over NCCL (the production backend),
+  at MAIN's config; the gradient all-reduce alone; then 40 supersteps of
+  the trainer and of a plain Engine from one state and one set of draws
+  under cuDNN's deterministic algorithms, bit for bit (a SUM over one rank
+  divided by 1 is exact). Returns the launch counts of the drive."""
+  import torch.distributed as dist
+  from dqn_zoo_torch import kernels
+  from dqn_zoo_torch.engine import Engine
+  from dqn_zoo_torch.run import checkpoint as ckpt
+  from dqn_zoo_torch.run import train_dist
+  from dqn_zoo_torch.utils.pytree import leaves
+
+  dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                          f"{_free_port()}", rank=0, world_size=1)
+  try:
+    trainer = train_dist.build_trainer(
+        "dqn", "pong", 1, 128, 1_000_000, min_replay_capacity_fraction=0.002,
+        device=dev)
+    cfg = trainer.engine.config
+    if (cfg.num_envs, cfg.batch_size, cfg.learn_every, cfg.updates_per_learn,
+        cfg.frame_multiplier) != (128, 1024, 1, 1, 1):
+      fail(f"DIST_MAIN: unexpected config {cfg}")
+    state = trainer.init(seed=1)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    warm, timed, fenced = 20, 100, 20
+    t0 = time.perf_counter()
+    state = trainer.run(state, warm)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    steps_before, counts_before = (state.telemetry.learn_steps,
+                                   kernels.counts())
+    t0 = time.perf_counter()
+    state = trainer.run(state, timed)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    if state.telemetry.learn_steps - steps_before != timed:
+      fail(f"DIST_MAIN: {state.telemetry.learn_steps - steps_before} learn "
+           f"steps in {timed} timed supersteps")
+    per = _dqn_launches_per_learning_superstep(
+        "DIST_MAIN", counts_before, kernels.counts(), timed)
+    split = {}
+    state = trainer.run(state, fenced, timings=split)
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+
+    m = trainer.metrics(state)
+    own = trainer.engine.metrics(state)
+    if m["learn_steps"] < 20 or m["learn_steps"] != own.learn_steps:
+      fail(f"DIST_MAIN: learn steps {m['learn_steps']} ({own.learn_steps})")
+    if not math.isfinite(own.last_loss):
+      fail(f"DIST_MAIN: loss is not finite: {own.last_loss}")
+    if m["env_frames"] != own.env_frames:
+      fail(f"DIST_MAIN: metrics over one rank {m} against {own}")
+    q_err = _dqn_q_against_plain(trainer.engine.network, state.online_params,
+                                 state.stack.frames)
+
+    # The gradient all-reduce alone, at the net's size.
+    numel = sum(p.numel() for p in leaves(state.online_params))
+    buf = torch.randn(numel, device=dev)
+    allreduce_ms = time_ms(lambda: dist.all_reduce(buf), iters=50, warmup=5)
+
+    # The trainer against a plain Engine from one state (and so one
+    # generator: the same draws).
+    engine = Engine(dataclasses.replace(cfg, pmap_axis=None), device=dev)
+    copy = ckpt.restore_state(engine.init(seed=2), ckpt.flatten_state(state))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+      state = trainer.run(state, 40)
+      copy = engine.run(copy, 40)
+      torch.cuda.synchronize()
+    finally:
+      torch.backends.cudnn.deterministic = deterministic
+    spread = _state_spread(state, copy)
+    if spread:
+      fail(f"DIST_MAIN: the trainer and the Engine differ after 40 "
+           f"supersteps from one state: {spread}")
+    summary = dict(
+        world_size=1, backend="nccl", supersteps=warm + timed + fenced,
+        learn_steps=m["learn_steps"], last_loss=own.last_loss,
+        warm_s=t_warm, timed_supersteps=timed,
+        ms_per_superstep=1e3 * t_run / timed,
+        env_steps_per_s=timed * cfg.num_envs / t_run,
+        split_ms_per_superstep={k: 1e3 * v / fenced
+                                for k, v in split.items()},
+        launches_per_learning_superstep=per, train_launches=counts,
+        allreduce_floats=numel, allreduce_mb=4 * numel / 1e6,
+        allreduce_ms=allreduce_ms, metrics=m, q_max_abs_err=q_err,
+        engine_equal_bit_for_bit_supersteps=40,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=card())
+    print("DIST_MAIN " + json.dumps(summary), flush=True)
+    return counts
+  finally:
+    dist.destroy_process_group()
+
+
+def dist_worker(rank: int, port: int) -> int:
+  """One rank of DIST_TWO_RANKS (`chip_smoke.py --dist-worker RANK PORT`):
+  dqn/pong through train_dist.build_trainer over gloo on the one card, at
+  global 128 streams, replay 1e6 and batch 1024 split over two ranks;
+  prints `DIST_RANK {...}` with its readings and launch counts."""
+  import torch.distributed as dist
+  here = os.path.dirname(os.path.abspath(__file__))
+  sys.path.insert(0, here)
+  from dqn_zoo_torch import kernels
+  from dqn_zoo_torch.device import resolve_device
+  from dqn_zoo_torch.replay import device_replay as dr
+  from dqn_zoo_torch.run import train_dist
+  from dqn_zoo_torch.utils.pytree import leaves
+
+  dev = resolve_device("cuda")
+  dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                          rank=rank, world_size=2)
+  try:
+    trainer = train_dist.build_trainer(
+        "dqn", "pong", 2, 128, 1_000_000, min_replay_capacity_fraction=0.002,
+        device=dev)
+    cfg = trainer.engine.config
+    if (cfg.num_envs, cfg.batch_size, cfg.frame_multiplier) != (64, 512, 2):
+      fail(f"DIST_TWO_RANKS: unexpected config {cfg}")
+    state = trainer.init(seed=1)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    warm, timed = 20, 40
+    state = trainer.run(state, warm)
+    torch.cuda.synchronize()
+    steps_before, counts_before = (state.telemetry.learn_steps,
+                                   kernels.counts())
+    t0 = time.perf_counter()
+    state = trainer.run(state, timed)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    counts = kernels.counts()
+    learned = state.telemetry.learn_steps - steps_before
+    if learned != timed:
+      fail(f"DIST_TWO_RANKS rank {rank}: {learned} learn steps in {timed} "
+           "timed supersteps")
+    per = _dqn_launches_per_learning_superstep(
+        f"DIST_TWO_RANKS rank {rank}", counts_before, counts, timed)
+
+    def gathered(t):
+      out = [torch.empty_like(t) for _ in range(2)]
+      dist.all_gather(out, t)
+      return out
+
+    online = torch.cat([p.detach().reshape(-1)
+                        for p in leaves(state.online_params)]).cpu()
+    same_params = all(torch.equal(o, online) for o in gathered(online))
+    rows = state.replay.t
+    frames = state.replay.frames[0, :rows].reshape(-1).cpu()
+    frames_differ = not torch.equal(*gathered(frames))
+    own = trainer.engine.metrics(state)
+    mine = torch.tensor([own.env_frames, own.episodes, own.learn_steps,
+                         int(dr.replay_size(state.replay))],
+                        dtype=torch.float64)
+    ranks = gathered(mine)
+    m = trainer.metrics(state)
+    total = (ranks[0] + ranks[1]).tolist()
+    sums_equal = [m["env_frames"], m["episodes"], m["learn_steps"]] == \
+        total[:3]
+    numel = online.numel()
+    buf = torch.randn(numel, device=dev)
+    for _ in range(3):
+      dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+      dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    allreduce_ms = 1e3 * (time.perf_counter() - t0) / 20
+    print("DIST_RANK " + json.dumps(dict(
+        rank=rank, learn_steps=state.telemetry.learn_steps,
+        last_loss=own.last_loss, ms_per_superstep=1e3 * t_run / timed,
+        env_steps_per_s=timed * cfg.num_envs / t_run,
+        launches=counts, launches_per_learning_superstep=per,
+        params_equal_across_ranks=same_params,
+        replay_frames_differ=frames_differ, metrics=m,
+        rank_metrics=[r.tolist() for r in ranks],
+        metric_sums_equal=sums_equal, allreduce_floats=numel,
+        allreduce_ms=allreduce_ms,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)), flush=True)
+    if not (same_params and frames_differ and sums_equal):
+      fail(f"DIST_TWO_RANKS rank {rank}: params equal {same_params}, "
+           f"frames differ {frames_differ}, metric sums {m} against "
+           f"{total}")
+    if own.learn_steps < 20 or not math.isfinite(own.last_loss):
+      fail(f"DIST_TWO_RANKS rank {rank}: {own}")
+  finally:
+    dist.destroy_process_group()
+  return 0
+
+
+def phase_dist_two_ranks(dev, timeout_s: float = 480.0):
+  """DIST_TWO_RANKS: two worker processes of this script on the one card,
+  over gloo (NCCL takes one card a rank). A worker that fails, or that is
+  still running at `timeout_s`, fails the phase; both are stopped either
+  way. Returns the two ranks' launch counts summed."""
+  import tempfile
+  del dev
+  port = _free_port()
+  t0 = time.perf_counter()
+  with tempfile.TemporaryDirectory() as tmp:
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-worker", str(r),
+         str(port)], stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(2)]
+    try:
+      while time.perf_counter() - t0 < timeout_s:
+        codes = [p.poll() for p in procs]
+        if all(c is not None for c in codes) or any(c for c in codes):
+          break
+        time.sleep(0.5)
+    finally:
+      for p in procs:
+        if p.poll() is None:
+          p.kill()
+        p.wait()
+    outs = []
+    for f in logs:
+      f.seek(0)
+      outs.append(f.read())
+      f.close()
+  wall_s = time.perf_counter() - t0
+  readings = []
+  for r, (p, out) in enumerate(zip(procs, outs)):
+    lines = [ln for ln in out.splitlines() if ln.startswith("DIST_RANK ")]
+    if p.returncode != 0 or not lines:
+      fail(f"DIST_TWO_RANKS: rank {r} exited {p.returncode}:\n"
+           f"{out[-3000:]}")
+    readings.append(json.loads(lines[-1][len("DIST_RANK "):]))
+  counts = {k: readings[0]["launches"][k] + readings[1]["launches"][k]
+            for k in readings[0]["launches"]}
+  print("DIST_TWO_RANKS " + json.dumps(dict(
+      world_size=2, backend="gloo", wall_s=wall_s, ranks=readings,
+      card=card())), flush=True)
+  return counts
+
+
+def phase_dist_cli(dev):
+  """DIST_CLI: `torchrun --nproc_per_node=1 -m dqn_zoo_torch.run.train
+  --mesh_devices=1` on dqn/pong at the CLI's widths for one train
+  iteration (40 supersteps) and two eval phases, with a replay-less rank
+  checkpoint; its CSV must hold iterations 0 and 1 in the 14 columns."""
+  import csv
+  import shutil
+  del dev
+  here = os.path.dirname(os.path.abspath(__file__))
+  root = os.path.join(here, ".ckpt", "chip_smoke_dist")
+  shutil.rmtree(root, ignore_errors=True)
+  csv_path = os.path.join(root, "cli.csv")
+  cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes=1",
+         "--nproc_per_node=1", "--master_addr=localhost",
+         f"--master_port={_free_port()}", "-m", "dqn_zoo_torch.run.train",
+         "--mesh_devices=1", "--agent=dqn", "--environment_name=pong",
+         "--num_iterations=1", f"--num_train_frames={4 * 128 * 40}",
+         "--num_eval_frames=1600", "--eval_num_envs=4",
+         "--min_replay_capacity_fraction=0.002",
+         f"--results_csv_path={csv_path}",
+         f"--checkpoint_path={os.path.join(root, 'ckpt')}",
+         "--checkpoint_replay=false"]
+  t0 = time.perf_counter()
+  try:
+    proc = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
+                          timeout=420)
+  except subprocess.TimeoutExpired:
+    fail("DIST_CLI: torchrun did not finish in 420 s")
+  wall_s = time.perf_counter() - t0
+  if proc.returncode != 0:
+    fail(f"DIST_CLI: exit {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+         f"{proc.stderr[-3000:]}")
+  with open(csv_path) as f:
+    rows = list(csv.DictReader(f))
+  with open(os.path.join(root, "ckpt", "meta.json")) as f:
+    meta = json.load(f)
+  if [int(r["iteration"]) for r in rows] != [0, 1] or \
+      any(len(r) != 14 for r in rows):
+    fail(f"DIST_CLI: the CSV holds {rows}")
+  if (meta["world_size"], meta["iteration"]) != (1, 2):
+    fail(f"DIST_CLI: checkpoint meta {meta}")
+  print("DIST_CLI " + json.dumps(dict(
+      wall_s=wall_s, columns=list(rows[0]), rows=rows,
+      checkpoint_files=sorted(os.listdir(os.path.join(root, "ckpt"))))),
+      flush=True)
+  shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA card; nothing was run.", file=sys.stderr)
@@ -2481,10 +2813,14 @@ def main() -> int:
                       ("iqn_ms_pacman", lambda d: phase_iqn_path(
                           d, "ms_pacman")),
                       ("resume", phase_resume_path),
-                      ("host_agent", phase_host_agent_path)):
+                      ("host_agent", phase_host_agent_path),
+                      ("dist", phase_dist_main),
+                      ("dist_two_ranks", phase_dist_two_ranks)):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     path_counts[path] = phase(dev)
+  torch.cuda.empty_cache()
+  phase_dist_cli(dev)
 
   entries = []
   for name in TPU_KERNELS:
@@ -2512,4 +2848,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+  if sys.argv[1:2] == ["--dist-worker"]:
+    sys.exit(dist_worker(int(sys.argv[2]), int(sys.argv[3])))
   sys.exit(main())

@@ -15,6 +15,7 @@ permutation.
 
 from __future__ import annotations
 
+import types
 from typing import Any, Union
 
 import numpy as np
@@ -160,6 +161,31 @@ def engine_state_from_jax(engine: Engine, state, seed: int = 0
       env=env_state_from_jax(engine, state.env, dev),
       pending=namedtuple_from_jax(PendingRow, state.pending, dev),
       **_learner_fields(engine, state, seed))
+
+
+def device_slice(tree, rank: int):
+  """Device `rank`'s slice of a nest whose every leaf has a leading device
+  axis (JAX's `DistState.per_device`), in the same containers."""
+  if hasattr(tree, "_fields"):
+    return type(tree)(*(device_slice(x, rank) for x in tree))
+  if isinstance(tree, dict):
+    return {k: device_slice(v, rank) for k, v in tree.items()}
+  if isinstance(tree, (list, tuple)):
+    return type(tree)(device_slice(x, rank) for x in tree)
+  return np.asarray(tree)[rank]
+
+
+def dist_state_from_jax(trainer, jax_dstate, rank: int, seed: int = 0
+                        ) -> EngineState:
+  """Rank `rank`'s EngineState from a JAX DistState (fetched to the host):
+  device `rank`'s slice of `per_device` joined with the replicated nets,
+  on `trainer.engine`'s device (a fresh generator from `seed` replaces the
+  JAX key)."""
+  per = device_slice(jax_dstate.per_device, rank)
+  return engine_state_from_jax(trainer.engine, types.SimpleNamespace(
+      **per._asdict(), online_params=jax_dstate.online_params,
+      target_params=jax_dstate.target_params,
+      opt_state=jax_dstate.opt_state), seed)
 
 
 def host_engine_state_from_jax(engine: HostEnvEngine, state, seed: int = 0

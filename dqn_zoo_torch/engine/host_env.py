@@ -115,7 +115,7 @@ class HostEnvEngine:
     env_frames = state.env_frames + int(group.frames_used.sum())
     # The one wait on the card: the actions and the replay size together.
     back = torch.cat([actions.to(torch.int64),
-                      dr.replay_size(replay).to(torch.int64).view(1)]).cpu()
+                      eng.gate_size(replay)]).cpu()
     actions_np = back[:-1].numpy().astype(np.int32)
     size = int(back[-1])
     clock.lap("insert")

@@ -29,6 +29,13 @@ Python loop over `superstep`, which reads two numbers back from the device
 per superstep (frames used and replay size) to gate learning and the target
 swap. Replay, parameters and optimizer state are updated in place.
 
+Data parallelism (`EngineConfig.pmap_axis`, parallel/distributed.py): one
+engine per rank of a `torch.distributed` process group, each with its own
+envs, replay and draws. Each SGD step mean-all-reduces the gradients over
+the group, so the replicated parameters stay equal on every rank, and the
+schedules count global frames by scaling the rank's own counters by
+`frame_multiplier`.
+
 Every random number a superstep uses comes from `draw(generator)` as one
 `SuperstepDraws`; a caller may pass its own draws instead (the differential
 tests hand in the values the JAX engine drew).
@@ -41,6 +48,7 @@ import time
 from typing import Any, Dict, NamedTuple, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from dqn_zoo_torch import prep
 from dqn_zoo_torch.agents.base import (AdamState, AgentSpec, RMSPropState,
@@ -79,10 +87,13 @@ class EngineConfig:
   # builds no device env and sizes the network from this. 0 = the device
   # game's own.
   num_actions: int = 0
+  # Number of ranks running this engine side by side (data parallelism):
+  # the schedules (ε, β, target swaps) read the rank's own frame and insert
+  # counters scaled by this factor, so they count global frames with no
+  # collective.
+  frame_multiplier: int = 1
 
   def __post_init__(self):
-    if self.pmap_axis is not None:
-      raise NotImplementedError("pmap_axis (multi-device) is not ported yet.")
     if self.agent.compute_dtype != "float32":
       raise NotImplementedError("the port computes in float32 only.")
 
@@ -187,10 +198,19 @@ class SuperstepDraws(NamedTuple):
 class Engine:
   """Builds the train/eval supersteps for one agent+game config."""
 
-  def __init__(self, config: EngineConfig, device=None):
+  def __init__(self, config: EngineConfig, device=None, group=None):
+    """`group`: the process group whose ranks run this engine side by side
+    when `config.pmap_axis` is set (None: the default group)."""
     self.config = config
     self.spec = config.agent
     self.device = resolve_device(device)
+    self.group = group
+    self.world_size = 1
+    if config.pmap_axis is not None:
+      if not dist.is_initialized():
+        raise RuntimeError("pmap_axis needs a torch.distributed process "
+                           "group (parallel.init_distributed).")
+      self.world_size = dist.get_world_size(group)
     try:
       self.game = get_game(config.game)
     except KeyError:
@@ -214,12 +234,13 @@ class Engine:
     s = self.spec
     if s.greedy_actor:
       return 0.0
+    m = self.config.frame_multiplier
     begin_t = s.min_replay_capacity_fraction * self.config.replay_capacity \
-        * self.config.env_config.action_repeat
+        * m * self.config.env_config.action_repeat
     decay = s.exploration_epsilon_decay_frame_fraction \
         * self.config.total_train_frames
     return float(linear_schedule(
-        float(env_frames), begin_value=s.exploration_epsilon_begin,
+        _f32(env_frames) * m, begin_value=s.exploration_epsilon_begin,
         end_value=s.exploration_epsilon_end, begin_t=begin_t,
         end_t=begin_t + decay))
 
@@ -227,10 +248,13 @@ class Engine:
     """β, annealed over inserted transitions from the min fill to the end of
     training (in agent steps)."""
     s = self.spec
+    m = self.config.frame_multiplier
     return float(linear_schedule(
-        float(inserted_transitions), begin_value=s.importance_sampling_begin,
+        _f32(inserted_transitions) * m,
+        begin_value=s.importance_sampling_begin,
         end_value=s.importance_sampling_end,
-        begin_t=s.min_replay_capacity_fraction * self.config.replay_capacity,
+        begin_t=s.min_replay_capacity_fraction * self.config.replay_capacity
+        * m,
         end_t=self.config.total_train_frames
         // self.config.env_config.action_repeat))
 
@@ -337,10 +361,37 @@ class Engine:
                          weights, *loss_args)
     params = leaves(online)
     grads = torch.autograd.grad(out.loss, params)
+    if self.config.pmap_axis is not None:
+      grads = self._mean_over_ranks(grads)
     self.optimizer.step(params, list(grads), opt_state)
     if self.rcfg.priority_exponent > 0:
       dr.replay_update_priorities(self.rcfg, replay, sampled, out.priorities)
     return out.loss.detach()
+
+  def _mean_over_ranks(self, grads):
+    """The gradients' mean over the ranks: one SUM all-reduce of all leaves
+    in one flat buffer, then a division by the world size (exact at one
+    and two ranks, where it equals XLA's pmean bit for bit)."""
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
+    flat /= self.world_size
+    return [v.view_as(g) for v, g in
+            zip(flat.split([g.numel() for g in grads]), grads)]
+
+  def gate_size(self, replay) -> torch.Tensor:
+    """(1,) int64 on the device: the replay size the learn gate reads.
+
+    Every rank must take the same decision, or one rank would wait in the
+    gradient all-reduce for a rank that skipped learning. The superstep
+    count is equal on every rank, but the replay size is not: it counts
+    active rows, and a terminal row never activates, so a rank whose
+    episodes ended more often holds fewer. With several ranks the gate
+    therefore reads the least size over the ranks (one 8-byte MIN
+    all-reduce a superstep)."""
+    size = dr.replay_size(replay).to(torch.int64).view(1)
+    if self.world_size > 1:
+      dist.all_reduce(size, op=dist.ReduceOp.MIN, group=self.group)
+    return size
 
   def learn(self, replay, target, online, opt_state,
             draws: SuperstepDraws) -> torch.Tensor:
@@ -356,8 +407,10 @@ class Engine:
   def swap_target(self, target, online, frames_before: int,
                   frames_after: int) -> None:
     """Copies the online parameters into the target's where the env frame
-    count crossed a multiple of the agent's target period."""
-    period = max(1, self.spec.target_network_update_period)
+    count crossed a multiple of the agent's target period, which counts
+    global frames (the rank's own divided by `frame_multiplier`)."""
+    period = max(1, self.spec.target_network_update_period
+                 // self.config.frame_multiplier)
     if frames_before // period != frames_after // period:
       with torch.no_grad():
         for t, o in zip(leaves(target), leaves(online)):
@@ -409,13 +462,16 @@ class Engine:
         discount=torch.where(out.is_first, zero, out.discount_prod * 0.99),
         is_terminal=out.is_last,
     )
-    frames_used, size = torch.stack(
-        [out.frames_used.sum().to(torch.int64),
-         dr.replay_size(replay).to(torch.int64)]).tolist()
+    frames_used, size = torch.cat(
+        [out.frames_used.sum().to(torch.int64).view(1),
+         self.gate_size(replay)]).tolist()
     env_frames = state.env_frames + frames_used
     clock.lap("env_prep")
 
-    # 6. gated learning.
+    # 6. gated learning. The gate reads only numbers equal on every rank (the
+    # superstep count and the least replay size over the ranks): with data
+    # parallelism a rank that learned alone would deadlock in the gradient
+    # all-reduce.
     tel = state.telemetry
     online, opt_state = state.online_params, state.opt_state
     min_fill = self.spec.min_replay_capacity_fraction * cfg.replay_capacity
@@ -546,6 +602,11 @@ class Engine:
     for _ in range(num_supersteps):
       state = self.eval_superstep(params, state)
     return state
+
+
+def _f32(x) -> torch.Tensor:
+  """A count as the JAX engine's float32 scalar."""
+  return torch.as_tensor(float(x), dtype=torch.float32)
 
 
 class _StageClock:

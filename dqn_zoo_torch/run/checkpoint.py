@@ -22,6 +22,10 @@ it, and only then deletes the previous state file: the meta file is the
 commit point, as `meta.npz` is in the JAX package, and a process killed at
 any moment leaves a restorable slot. The meta file needs nothing but a JSON
 reader (the chain script reads `iteration` from it).
+
+`RankCheckpoint` is the slot of a data-parallel run (parallel/): each rank
+writes its own state file, and the first rank commits the meta file once
+every rank's is written. A restore requires as many ranks as the save had.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import os
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 META = "meta.json"
 
@@ -135,6 +140,8 @@ class NullCheckpoint:
 class TorchCheckpoint:
   """Single-slot checkpoint of (engine state, iteration, writer state)."""
 
+  world_size = 1  # the ranks whose states one slot holds
+
   def __init__(self, path: str):
     self._path = os.path.abspath(path)
     self._meta_path = os.path.join(self._path, META)
@@ -150,6 +157,37 @@ class TorchCheckpoint:
     """The committed state file."""
     return os.path.join(self._path, self.meta()["state_file"])
 
+  def _next_saves(self) -> int:
+    os.makedirs(self._path, exist_ok=True)
+    return self.meta()["saves"] + 1 if self.can_be_restored() else 1
+
+  def _write(self, state, name: str) -> None:
+    tmp = os.path.join(self._path, name + ".tmp")
+    torch.save(flatten_state(state), tmp)
+    os.replace(tmp, os.path.join(self._path, name))
+
+  def _commit(self, meta: Dict[str, Any], keep) -> None:
+    """Replaces the meta file, then deletes the state files it does not
+    name (`keep`)."""
+    with open(self._meta_path + ".tmp", "w") as f:
+      json.dump(meta, f)
+    os.replace(self._meta_path + ".tmp", self._meta_path)
+    for old in os.listdir(self._path):
+      if old.startswith("state.") and old not in keep:
+        os.remove(os.path.join(self._path, old))
+
+  @staticmethod
+  def _meta(iteration, writer_state, train_done, extras, saves) -> dict:
+    return {
+        "iteration": int(iteration),
+        "train_done": int(train_done),
+        "header_written": bool(writer_state.get("header_written", False)),
+        "fieldnames": list(writer_state.get("fieldnames") or []),
+        "rows_written": int(writer_state.get("rows_written", -1)),
+        "extras": {k: float(v) for k, v in (extras or {}).items()},
+        "saves": saves,
+    }
+
   def save(self, state, iteration: int, writer_state: Mapping[str, Any],
            train_done: int = 0,
            extras: Optional[Mapping[str, float]] = None) -> None:
@@ -159,34 +197,21 @@ class TorchCheckpoint:
     phase, so that a resumed run continues mid-iteration. extras: numbers
     that must outlive a subtree left out of `state` (the replay's insert
     counter and max-seen priority under --checkpoint_replay=false)."""
-    os.makedirs(self._path, exist_ok=True)
-    saves = self.meta()["saves"] + 1 if self.can_be_restored() else 1
+    saves = self._next_saves()
     name = f"state.{saves}.pt"
-    tmp = os.path.join(self._path, name + ".tmp")
-    torch.save(flatten_state(state), tmp)
-    os.replace(tmp, os.path.join(self._path, name))
-    meta = {
-        "iteration": int(iteration),
-        "train_done": int(train_done),
-        "header_written": bool(writer_state.get("header_written", False)),
-        "fieldnames": list(writer_state.get("fieldnames") or []),
-        "rows_written": int(writer_state.get("rows_written", -1)),
-        "extras": {k: float(v) for k, v in (extras or {}).items()},
-        "state_file": name,
-        "saves": saves,
-    }
-    with open(self._meta_path + ".tmp", "w") as f:
-      json.dump(meta, f)
-    os.replace(self._meta_path + ".tmp", self._meta_path)
-    for old in os.listdir(self._path):
-      if old.startswith("state.") and old != name:
-        os.remove(os.path.join(self._path, old))
+    self._write(state, name)
+    self._commit(dict(self._meta(iteration, writer_state, train_done, extras,
+                                 saves), state_file=name), keep={name})
 
   def restore(self, template) -> Tuple[Any, int, Mapping[str, Any], int]:
     """(state, iteration, writer state, train_done). The state's tensors
     are `template`'s, holding the saved values; a template replay of None
-    stays None (and the file's replay, if any, is not read)."""
+    stays None (and the file's replay, if any, is not read). Raises where
+    the slot holds another number of ranks' states than this run has."""
     meta = self.meta()
+    if meta.get("world_size", 1) != self.world_size:
+      raise ValueError(f"the checkpoint holds {meta.get('world_size', 1)} "
+                       f"ranks' states; this run has {self.world_size}.")
     flat = torch.load(self.state_path(), map_location="cpu",
                       weights_only=True, mmap=True)
     if template.replay is None:
@@ -201,3 +226,49 @@ class TorchCheckpoint:
   def restore_extras(self) -> Mapping[str, float]:
     """Numbers saved via `extras=`."""
     return self.meta()["extras"]
+
+
+class RankCheckpoint(TorchCheckpoint):
+  """The slot of a data-parallel run, saved and restored on every rank of
+  the process group together: each rank writes `state.{saves}.rank{r}.pt`,
+  then the first rank commits the meta file (with the world size) once
+  every rank's file is written. The path must be on a file system that
+  every rank sees. `device` holds the few numbers the ranks exchange (the
+  card under NCCL)."""
+
+  def __init__(self, path: str, device="cpu"):
+    super().__init__(path)
+    self._device = torch.device(device)
+    self.rank = dist.get_rank()
+    self.world_size = dist.get_world_size()
+
+  def state_path(self) -> str:
+    return os.path.join(self._path,
+                        f"state.{self.meta()['saves']}.rank{self.rank}.pt")
+
+  def _max_over_ranks(self, values) -> list:
+    """Each value's max over the ranks. A collective, and a barrier: it
+    returns once every rank has reached it."""
+    t = torch.tensor([float(v) for v in values] + [0.0], dtype=torch.float64,
+                     device=self._device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return t.tolist()[:-1]
+
+  def save(self, state, iteration: int, writer_state: Mapping[str, Any],
+           train_done: int = 0,
+           extras: Optional[Mapping[str, float]] = None) -> None:
+    """TorchCheckpoint.save on every rank; `extras` are saved as their max
+    over the ranks (the JAX CLI's rule for the replay's insert counter and
+    max-seen priority), and the writer state is the first rank's."""
+    saves = self._next_saves()
+    self._write(state, f"state.{saves}.rank{self.rank}.pt")
+    keys = sorted(extras or {})
+    extras = dict(zip(keys, self._max_over_ranks(
+        [extras[k] for k in keys])))  # every rank's file is written
+    if self.rank == 0:
+      self._commit(dict(self._meta(iteration, writer_state, train_done,
+                                   extras, saves),
+                        world_size=self.world_size),
+                   keep={f"state.{saves}.rank{r}.pt"
+                         for r in range(self.world_size)})
+    self._max_over_ranks([])  # no rank goes on before the commit

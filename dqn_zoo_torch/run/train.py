@@ -5,7 +5,8 @@ Usage: python -m dqn_zoo_torch.run.train --agent=dqn --environment_name=pong
 The reference's run protocol: iterations of (train phase, eval phase),
 iteration 0 eval-only, one CSV row and one log line per iteration with the
 reference's 13 fields plus `eval_frames`. Flag names are the JAX CLI's;
-flags of parts not ported yet (multi-device, bfloat16) raise when set.
+--compute_dtype=bfloat16, not ported yet, raises. --mesh_devices=N trains
+data-parallel over N ranks under torchrun (run/train_dist.py).
 Agents: dqn, double_q, prioritized, iqn, rainbow, c51 and qrdqn (each also
 has its runner, `python -m dqn_zoo_torch.run.agents.<agent>`). Games, all
 25 of the JAX package's: pong, catch, seaquest, breakout, space_invaders,
@@ -77,7 +78,7 @@ def _bool(text: str) -> bool:
   raise argparse.ArgumentTypeError(f"not a boolean: {text!r}")
 
 
-def build_engine(agent_name: str, game: str, num_envs: int,
+def build_config(agent_name: str, game: str, num_envs: int,
                  replay_capacity: int, batch_size: int = 0,
                  replay_ratio_mode: str = "throughput",
                  max_frames_per_episode: int = 108000,
@@ -86,21 +87,30 @@ def build_engine(agent_name: str, game: str, num_envs: int,
                  min_replay_capacity_fraction: float = -1.0,
                  spec_overrides: dict | None = None,
                  resize_method: str = "fast",
-                 device=None) -> Engine:
-  """Engine factory shared by the CLI, tests and chip_smoke.py.
+                 num_ranks: int = 0) -> EngineConfig:
+  """The EngineConfig the CLI, the tests and chip_smoke.py build from the
+  flags' counts.
 
   Keeps the reference's replay ratio (batch_size samples per learn_period
   frames) for any number of env streams: parity mode takes the reference
   batch and more updates; throughput mode one big batch per superstep with
-  the learning rate scaled by sqrt(batch / reference batch)."""
+  the learning rate scaled by sqrt(batch / reference batch).
+  `num_ranks` > 0: one rank's config for data parallelism over that many
+  ranks (parallel/): the counts are global and split evenly (each rank
+  takes batch / num_ranks, and the mean gradient sees the whole batch),
+  `pmap_axis` is set and the frame multiplier is `num_ranks`, as the JAX
+  package's train_dist.build_trainer splits them."""
+  ranks = max(1, num_ranks)
+  if num_envs % ranks:
+    raise ValueError(f"num_envs={num_envs} must divide evenly over "
+                     f"mesh_devices={ranks}.")
   spec = get_agent(agent_name)
   if spec_overrides:
     spec = dataclasses.replace(spec, **spec_overrides)
   if min_replay_capacity_fraction >= 0:
     spec = dataclasses.replace(
         spec, min_replay_capacity_fraction=min_replay_capacity_fraction)
-  b = num_envs
-  samples_per_superstep = max(1, round(4 * b * spec.batch_size
+  samples_per_superstep = max(1, round(4 * num_envs * spec.batch_size
                                        / spec.learn_period))
   if batch_size <= 0:
     if replay_ratio_mode == "parity":
@@ -112,19 +122,25 @@ def build_engine(agent_name: str, game: str, num_envs: int,
   if replay_ratio_mode == "throughput" and batch_size > spec.batch_size:
     scale = (batch_size / spec.batch_size) ** 0.5
     spec = dataclasses.replace(spec, learning_rate=spec.learning_rate * scale)
-  slots = max(replay_capacity // b, spec.n_step + 5)
-  return Engine(EngineConfig(
+  return EngineConfig(
       agent=spec,
       game=game,
-      num_envs=b,
-      slots_per_stream=slots,
-      batch_size=batch_size,
+      num_envs=num_envs // ranks,
+      slots_per_stream=max(replay_capacity // num_envs, spec.n_step + 5),
+      batch_size=max(1, batch_size // ranks),
       learn_every=learn_every,
       updates_per_learn=updates,
       total_train_frames=num_iterations * num_train_frames,
       env_config=VectorEnvConfig(episode_frame_cap=max_frames_per_episode),
       resize_method=resize_method,
-  ), device=device)
+      pmap_axis="d" if num_ranks > 0 else None,
+      frame_multiplier=ranks,
+  )
+
+
+def build_engine(*args, device=None, **kwargs) -> Engine:
+  """The Engine of `build_config(*args, **kwargs)` on one device."""
+  return Engine(build_config(*args, **kwargs), device=device)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -161,7 +177,9 @@ def _parser() -> argparse.ArgumentParser:
       choices=["parity", "throughput"])
   add("--resize_method", default="fast", choices=["fast", "pil"])
   add("--eval_num_envs", type=int, default=0)
-  add("--mesh_devices", type=int, default=0)
+  add("--mesh_devices", type=int, default=0,
+      help="Data-parallel ranks (run under torchrun with as many "
+      "processes); 0 = one device.")
   add("--device", default="cuda", help="cuda (default) or cpu.")
   add("--compute_dtype", default="",
       help="float32 (default); bfloat16 is not ported yet.")
@@ -240,46 +258,102 @@ def restore_checkpoint(checkpoint, template, checkpoint_replay: bool):
           train_done)
 
 
+class OneDevice:
+  """The iteration protocol's view of one Engine: the methods that
+  parallel.DistributedTrainer gives it over ranks, for a single device."""
+
+  rank, world_size = 0, 1
+
+  def __init__(self, engine: Engine):
+    self.engine = engine
+    self.device = engine.device
+
+  def init(self, seed: int):
+    return self.engine.init(seed)
+
+  def run(self, state, num_supersteps: int):
+    return self.engine.run(state, num_supersteps)
+
+  def reset_telemetry(self, state):
+    return self.engine.reset_telemetry(state)
+
+  def metrics(self, state) -> dict:
+    return self.engine.metrics(state)._asdict()
+
+  @staticmethod
+  def total_frames(state) -> int:
+    return state.env_frames
+
+  def eval_init(self, seed: int, num_envs: int):
+    return self.engine.eval_init(seed, num_envs=num_envs)
+
+  def eval_run(self, params, estate, num_supersteps: int):
+    return self.engine.eval_run(params, estate, num_supersteps)
+
+  @staticmethod
+  def eval_metrics(estate) -> dict:
+    episodes = float(estate.completed_count)
+    return {"env_frames": int(estate.env_frames), "episodes": episodes,
+            "mean_episode_return": (float(estate.completed_return_sum)
+                                    / episodes if episodes else math.nan)}
+
+  @staticmethod
+  def agree(flag: bool) -> bool:
+    return flag
+
+
 def main(argv: Optional[Sequence[str]] = None):
-  """Runs the CLI; returns the final engine state."""
+  """Runs the CLI; returns the final engine state (this rank's, with
+  --mesh_devices)."""
   args = _parser().parse_args(argv)
-  if args.mesh_devices:
-    raise NotImplementedError("--mesh_devices is not ported yet.")
+  if args.mesh_devices > 0:
+    from dqn_zoo_torch.run import train_dist
+    return train_dist.main_dist(args, _spec_overrides(args))
   engine = build_engine(
       args.agent, args.environment_name, args.num_envs, args.replay_capacity,
       args.batch_size, args.replay_ratio_mode, args.max_frames_per_episode,
       args.num_iterations, args.num_train_frames,
       args.min_replay_capacity_fraction, spec_overrides=_spec_overrides(args),
       resize_method=args.resize_method, device=args.device)
-  writer = CsvWriter(args.results_csv_path) if args.results_csv_path \
-      else NullWriter()
   checkpoint = (TorchCheckpoint(args.checkpoint_path)
                 if args.checkpoint_path else NullCheckpoint())
+  return run_protocol(args, OneDevice(engine), checkpoint)
+
+
+def run_protocol(args, trainer, checkpoint):
+  """The iteration protocol over `trainer` (a OneDevice, or a
+  parallel.DistributedTrainer on every rank together); returns the final
+  state. Every decision that ends a loop goes through `trainer.agree`
+  (over ranks: the first rank's, broadcast), and only the first rank
+  writes the CSV and the log."""
+  lead = trainer.rank == 0
+  log = logging.info if lead else (lambda *a: None)
+  writer = (CsvWriter(args.results_csv_path)
+            if lead and args.results_csv_path else NullWriter())
 
   def fence() -> None:
     """Waits for the card, so that the budget clock reads work done, not
     work queued (the superstep's own read-back does not wait for the learn
     launches after it)."""
-    if engine.device.type == "cuda":
-      torch.cuda.synchronize(engine.device)
+    if trainer.device.type == "cuda":
+      torch.cuda.synchronize(trainer.device)
 
-  state = engine.init(args.seed)
+  state = trainer.init(args.seed)
   fence()
   t_start = time.monotonic()  # the budget clock
   iteration = 0
   train_done = 0  # supersteps already finished inside `iteration`'s train
 
-  if checkpoint.can_be_restored():
-    logging.info("Restoring checkpoint.")
+  if trainer.agree(checkpoint.can_be_restored()):
+    log("Restoring checkpoint.")
     state, iteration, writer_state, train_done = restore_checkpoint(
         checkpoint, state, args.checkpoint_replay)
     writer.set_state(writer_state)
-    logging.info("Restored at iteration=%d train_done=%d.", iteration,
-                 train_done)
+    log("Restored at iteration=%d train_done=%d.", iteration, train_done)
 
   def over_budget() -> bool:
-    return bool(args.max_run_seconds) and \
-        time.monotonic() - t_start > args.max_run_seconds
+    return trainer.agree(bool(args.max_run_seconds) and
+                         time.monotonic() - t_start > args.max_run_seconds)
 
   last_save = [time.monotonic()]
 
@@ -288,58 +362,61 @@ def main(argv: Optional[Sequence[str]] = None):
     save_checkpoint(checkpoint, st, it, writer.get_state(), td,
                     args.checkpoint_replay)
     last_save[0] = time.monotonic()
-    logging.info("Checkpoint saved (iteration=%d, train_done=%d) in %.1fs.",
-                 it, td, last_save[0] - t)
+    log("Checkpoint saved (iteration=%d, train_done=%d) in %.1fs.", it, td,
+        last_save[0] - t)
 
-  b = engine.config.num_envs
-  train_supersteps = max(1, args.num_train_frames // (4 * b))
+  # --num_envs and the frame budgets are global; the eval streams are split
+  # over the ranks, at least one each.
+  d = trainer.world_size
+  train_supersteps = max(1, args.num_train_frames // (4 * args.num_envs))
   eval_envs = args.eval_num_envs
   if eval_envs <= 0:
     eval_envs = max(1, args.num_eval_frames
                     // max(1, args.max_frames_per_episode))
-  eval_envs = min(eval_envs, b)
-  eval_supersteps = max(1, args.num_eval_frames // (4 * eval_envs))
+  eval_envs_per_rank = max(1, max(d, min(eval_envs, args.num_envs)) // d)
+  eval_supersteps = max(
+      1, args.num_eval_frames // (4 * eval_envs_per_rank * d))
 
   run_iterations = 0
   while iteration <= args.num_iterations:
     if args.iterations_per_run and run_iterations >= args.iterations_per_run:
-      logging.info("iterations_per_run reached; exiting for resume.")
+      log("iterations_per_run reached; exiting for resume.")
       break
     if over_budget():
-      logging.info("max_run_seconds reached; exiting for resume.")
+      log("max_run_seconds reached; exiting for resume.")
       break
     run_iterations += 1
     # --- train phase (iteration 0 is eval-only), in chunks with a fence
     # after each, where the budget is checked and mid-train saves happen.
-    logging.info("Training iteration %d.", iteration)
+    log("Training iteration %d.", iteration)
     n = 0 if iteration == 0 else train_supersteps
     done = min(train_done, n)
     train_done = 0
     if done == 0:
       # A mid-iteration resume keeps the restored telemetry: its phase
       # began in an earlier process.
-      state = engine.reset_telemetry(state)
+      state = trainer.reset_telemetry(state)
     elif done < n:
-      logging.info("Resuming train phase at superstep %d/%d.", done, n)
+      log("Resuming train phase at superstep %d/%d.", done, n)
     rate = StepRateTracker()
     rate.update(0)
-    frames_before = state.env_frames
+    frames_before = trainer.total_frames(state)
     first_chunk_saved = False
     aborted = False
     while done < n:
       k = min(TRAIN_CHUNK, n - done)
-      state = engine.run(state, k)
+      state = trainer.run(state, k)
       done += k
       fence()
       if done < n and over_budget():
-        logging.info("max_run_seconds hit mid-train; saving and exiting.")
+        log("max_run_seconds hit mid-train; saving and exiting.")
         do_save(state, iteration, done)
         aborted = True
         break
       # The first completed chunk of each train phase is saved at once, so
       # that a resumed leg banks progress before its first interval; later
       # ones every save_interval_seconds.
-      if done < n and args.save_interval_seconds and (
+      if done < n and args.save_interval_seconds and trainer.agree(
           not first_chunk_saved
           or time.monotonic() - last_save[0] > args.save_interval_seconds):
         do_save(state, iteration, done)
@@ -349,55 +426,56 @@ def main(argv: Optional[Sequence[str]] = None):
     if n and over_budget():
       # Train finished with no budget left for eval: save with
       # train_done = n, so that the next process goes straight to eval.
-      logging.info("max_run_seconds hit post-train; saving and exiting.")
+      log("max_run_seconds hit post-train; saving and exiting.")
       do_save(state, iteration, n)
       break
-    train_m = engine.metrics(state)
-    rate.update(train_m.env_frames - frames_before)
+    train_m = trainer.metrics(state)
+    rate.update(train_m["env_frames"] - frames_before)
     train_rate = rate.get()["step_rate"] if n else float("nan")
 
     # --- eval phase: the frame budget, extended up to 3x until an episode
     # completes, in chunks of at most 100 supersteps. Its seed is a
     # function of (seed, iteration), so eval state is never saved.
-    logging.info("Evaluation iteration %d.", iteration)
-    estate = engine.eval_init(args.seed * 1_000_003 + iteration,
-                              num_envs=eval_envs)
+    log("Evaluation iteration %d.", iteration)
+    estate = trainer.eval_init(args.seed * 1_000_003 + iteration,
+                               num_envs=eval_envs_per_rank)
     erate = StepRateTracker()
     erate.update(0)
     done = 0
     while done < eval_supersteps or (
-        done < 3 * eval_supersteps and float(estate.completed_count) == 0):
+        done < 3 * eval_supersteps
+        and trainer.agree(trainer.eval_metrics(estate)["episodes"] == 0)):
       cap = eval_supersteps if done < eval_supersteps else 3 * eval_supersteps
       k = min(100, cap - done)
-      estate = engine.eval_run(state.online_params, estate, k)
+      estate = trainer.eval_run(state.online_params, estate, k)
       done += k
-    eval_frames = int(estate.env_frames)
-    erate.update(eval_frames)
-    eval_episodes = int(estate.completed_count)
-    eval_return = (float(estate.completed_return_sum) / eval_episodes
-                   if eval_episodes else float("nan"))
+    em = trainer.eval_metrics(estate)
+    erate.update(em["env_frames"])
+    eval_episodes = int(em["episodes"])
+    eval_return = em["mean_episode_return"]
 
     human_norm = atari_data.get_human_normalized_score(
         args.environment_name, eval_return)
     capped = min(1.0, human_norm) if not math.isnan(human_norm) else human_norm
-    train_return = train_m.mean_episode_return if n else float("nan")
+    train_return = train_m["mean_episode_return"] if n else float("nan")
     log_output = [
         ("iteration", iteration, "%3d"),
         ("frame", iteration * args.num_train_frames, "%5d"),
         ("eval_episode_return", eval_return, "% 2.2f"),
         ("train_episode_return", train_return, "% 2.2f"),
         ("eval_num_episodes", eval_episodes, "%3d"),
-        ("train_num_episodes", int(train_m.episodes), "%3d"),
+        ("train_num_episodes", int(train_m["episodes"]), "%3d"),
         ("eval_frame_rate", erate.get()["step_rate"], "%4.0f"),
         ("train_frame_rate", train_rate, "%4.0f"),
-        ("train_exploration_epsilon", train_m.exploration_epsilon, "%.3f"),
-        ("train_state_value", train_m.state_value_ewma, "%.3f"),
+        ("train_exploration_epsilon", train_m["exploration_epsilon"],
+         "%.3f"),
+        ("train_state_value", train_m["state_value_ewma"], "%.3f"),
         ("normalized_return", human_norm, "%.3f"),
         ("capped_normalized_return", capped, "%.3f"),
         ("human_gap", 1.0 - capped, "%.3f"),
-        ("eval_frames", eval_frames, "%d"),
+        ("eval_frames", em["env_frames"], "%d"),
     ]
-    logging.info(", ".join(("%s: " + f) % (n_, v) for n_, v, f in log_output))
+    log(", ".join(("%s: " + f) % (n_, v) for n_, v, f in log_output))
     writer.write(collections.OrderedDict((n_, v) for n_, v, _ in log_output))
     iteration += 1
     exiting = (args.iterations_per_run

@@ -973,3 +973,42 @@ def test_host_agent_learn_steps_on_the_card_match_the_cpu(dev):
     else:
       timestep = env.step(actions["cpu"])
   assert learned >= 5 and agents["cpu"]._replay.size >= 20
+
+
+def test_one_rank_nccl_trainer_equals_the_engine(dev, tmp_path):
+  """DistributedTrainer at world size 1 over NCCL against a plain Engine
+  from one state and generator (the same draws), 30 supersteps of
+  dqn/catch past the min fill under cuDNN's deterministic algorithms: the
+  gradient all-reduce is a SUM over one rank divided by 1, so every entry
+  of the two states is equal bit for bit."""
+  import dataclasses
+  import torch.distributed as dist
+  from dqn_zoo_torch.engine import Engine
+  from dqn_zoo_torch.run import checkpoint as ckpt
+  from dqn_zoo_torch.run import train_dist
+  dist.init_process_group("nccl", store=dist.FileStore(
+      str(tmp_path / "store"), 1), rank=0, world_size=1)
+  deterministic = torch.backends.cudnn.deterministic
+  try:
+    trainer = train_dist.build_trainer(
+        "dqn", "catch", 1, 8, 2048, min_replay_capacity_fraction=0.02,
+        device=dev)
+    engine = Engine(dataclasses.replace(trainer.engine.config,
+                                        pmap_axis=None), device=dev)
+    a = trainer.init(0)
+    b = ckpt.restore_state(engine.init(1), ckpt.flatten_state(a))
+    torch.backends.cudnn.deterministic = True
+    a = trainer.run(a, 30)
+    b = engine.run(b, 30)
+    assert a.telemetry.learn_steps >= 10
+    got, want = ckpt.flatten_state(a), ckpt.flatten_state(b)
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+      if isinstance(v, torch.Tensor):
+        assert torch.equal(got[k].reshape(-1).contiguous().view(torch.uint8),
+                           v.reshape(-1).contiguous().view(torch.uint8)), k
+      else:
+        assert got[k] == v, k
+  finally:
+    torch.backends.cudnn.deterministic = deterministic
+    dist.destroy_process_group()

@@ -54,8 +54,11 @@ def test_cli_runs_the_iteration_protocol_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--mesh_devices=2"])
-def test_cli_flags_not_ported_yet_raise(flag):
-  with pytest.raises(NotImplementedError):
+def test_cli_flags_not_ported_yet_raise(flag, monkeypatch):
+  """--mesh_devices=2 is ported; outside a process group of 2 ranks (no
+  torchrun variables, no group joined) it raises ValueError."""
+  monkeypatch.delenv("WORLD_SIZE", raising=False)
+  with pytest.raises(ValueError, match="process group of 2 ranks"):
     ttrain.main(["--device=cpu", "--num_envs=2", "--replay_capacity=64",
                  "--results_csv_path=", flag])
 

@@ -237,10 +237,15 @@ def test_eval_supersteps_match_jax():
 def test_modes_not_ported_yet_raise():
   spec = get_agent("dqn")
   base = dict(agent=spec, game="pong", num_envs=2, slots_per_stream=16)
-  for extra in (dict(pmap_axis="d"), dict(agent=dataclasses.replace(
-      spec, compute_dtype="bfloat16"))):
-    with pytest.raises(NotImplementedError):
-      EngineConfig(**{**base, **extra})
+  with pytest.raises(NotImplementedError):
+    EngineConfig(**{**base, "agent": dataclasses.replace(
+        spec, compute_dtype="bfloat16")})
+  # Data parallelism is ported: the config builds, and its engine needs a
+  # process group (parallel.init_distributed).
+  cfg = EngineConfig(**base, pmap_axis="d", frame_multiplier=2)
+  assert cfg.frame_multiplier == 2
+  with pytest.raises(RuntimeError, match="process group"):
+    Engine(cfg, device="cpu")
   # Overlap mode and the host env's action count are ported.
   eng = Engine(EngineConfig(**base, overlap_env_learn=True), device="cpu")
   assert eng.config.overlap_env_learn and eng.num_actions == 6

@@ -8,9 +8,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      of each kernel (registers, static shared memory, spills; K4b's, K4c's
      and K2's dynamic shared memory beside it);
   2. hold each kernel against its plain PyTorch version at the main paths'
-     shapes (K1 at W = 5 and W = 7), and time kernel, plain version,
-     library call and bound; then SEAQUEST: 64 groups of the port's vector
-     seaquest at 128 envs on the card and on the CPU from the same draws
+     shapes (K1 at W = 5 and W = 7; K4a, K4b and K4c also in their
+     bf16-operand mode, bound at the bf16 rate), and time kernel, plain
+     version, library call and bound; then SEAQUEST: 64 groups of the
+     port's vector seaquest at 128 envs on the card and on the CPU from the
+     same draws
      (per-frame diver spawns, noop burns) and actions, every output
      (frames, rewards, lives, ...) and state field required bit for bit;
      GAMES: the same for breakout, space_invaders, freeway, asterix,
@@ -26,6 +28,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      supersteps for >= 20 learn steps (a timed window of 600, which holds
      episode resets), then one eval chunk; check the loss,
      the outputs and that every kernel of that path was launched;
+     then BF16_MAIN, the same trainer at compute_dtype=bfloat16 (20 warm,
+     100 timed, 20 fenced supersteps): K1 1, K2 1 and K3a, K3b 0 a
+     learning superstep (the cast torso on cuDNN), its Q-values against
+     the same network on the CPU, its ms a superstep beside 3.'s;
   4. drive the prioritized path — build_engine("prioritized", "pong",
      num_envs=128, replay_capacity=1e6) in throughput mode with 3's lowered
      min fill — through 360 supersteps (300 timed, 40 with a fenced split);
@@ -82,10 +88,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      moved and that every kernel of that path was launched as often as the
      path says (K1 1, K2 1, K3a 2, K3b 1, K4a 3, K4b 1, K4c 1 a learning
      superstep), and print the replay-less checkpoint's bytes; then
-     IQN_MS_PACMAN_MAIN, the same phase for build_engine("iqn",
-     "ms_pacman", ...): 9 actions (K4a's last column tile ragged), episodes
-     cut short by lost lives, the timed supersteps that took the reset
-     branch counted;
+     IQN_BF16_HEAD, the same phase with the network built at
+     head_matmul_dtype=bfloat16 (the bf16 entries of K4a, K4b and K4c 2,
+     1, 1, 1 a learning superstep, their f32 entries 0), its ms a learning
+     superstep beside the f32 head's; then IQN_MS_PACMAN_MAIN, the same
+     phase for build_engine("iqn", "ms_pacman", ...): 9 actions (K4a's last
+     column tile ragged), episodes cut short by lost lives, the timed
+     supersteps that took the reset branch counted;
   6. checkpoint/resume of the dqn/pong trainer at 5.'s shapes (RESUME):
      save with and without the replay (the 7.06 GB frame store), restore
      into a second engine and require every entry bit for bit; 40
@@ -124,6 +133,7 @@ nothing of JAX or of dqn_zoo_tpu.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -142,6 +152,9 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+# bf16 on the tensor cores: the rate for the work of the IQN head's
+# bf16-operand mode (its products' operands are bf16).
+PEAK_BF16_FLOPS = 989e12
 # Input sets a memory-bound kernel's timing rotates through (see time_ms).
 ROTATE = 8
 
@@ -154,6 +167,11 @@ TPU_KERNELS = {
     "iqn_head_fwd_residuals": "dqn_zoo_tpu/nets/iqn_head.py:115",
     "iqn_head_bwd_w": "dqn_zoo_tpu/nets/iqn_head.py:155",
     "iqn_head_bwd_d": "dqn_zoo_tpu/nets/iqn_head.py:203",
+    # The same TPU kernels with mm = bfloat16 (their bf16-operand mode).
+    "iqn_head_fwd_bf16": "dqn_zoo_tpu/nets/iqn_head.py:115",
+    "iqn_head_fwd_residuals_bf16": "dqn_zoo_tpu/nets/iqn_head.py:115",
+    "iqn_head_bwd_w_bf16": "dqn_zoo_tpu/nets/iqn_head.py:155",
+    "iqn_head_bwd_d_bf16": "dqn_zoo_tpu/nets/iqn_head.py:203",
 }
 SOURCES = {
     "gather_windows": "dqn_zoo_torch/csrc/window_gather.cu",
@@ -164,6 +182,10 @@ SOURCES = {
     "iqn_head_fwd_residuals": "dqn_zoo_torch/csrc/iqn_head.cu",
     "iqn_head_bwd_w": "dqn_zoo_torch/csrc/iqn_head_bwd.cu",
     "iqn_head_bwd_d": "dqn_zoo_torch/csrc/iqn_head_bwd.cu",
+    "iqn_head_fwd_bf16": "dqn_zoo_torch/csrc/iqn_head.cu",
+    "iqn_head_fwd_residuals_bf16": "dqn_zoo_torch/csrc/iqn_head.cu",
+    "iqn_head_bwd_w_bf16": "dqn_zoo_torch/csrc/iqn_head_bwd.cu",
+    "iqn_head_bwd_d_bf16": "dqn_zoo_torch/csrc/iqn_head_bwd.cu",
 }
 # The kernels each main path must launch.
 PATH_KERNELS = {
@@ -207,6 +229,15 @@ PATH_KERNELS = {
              "dqn_torso_fwd_residuals"),
     "dist_two_ranks": ("gather_windows", "pooled_frame_to_84",
                        "dqn_torso_fwd", "dqn_torso_fwd_residuals"),
+    # dqn/pong at compute_dtype=bfloat16: the cast torso on cuDNN, no K3
+    # (the reference's fused torso computes in f32 only).
+    "bf16": ("gather_windows", "pooled_frame_to_84"),
+    # iqn/pong with the head's bf16-operand mode: the f32 torso (K3) and
+    # the bf16 entries of K4a, K4b and K4c.
+    "iqn_bf16_head": ("gather_windows", "pooled_frame_to_84",
+                      "dqn_torso_fwd", "dqn_torso_fwd_residuals",
+                      "iqn_head_fwd_bf16", "iqn_head_fwd_residuals_bf16",
+                      "iqn_head_bwd_w_bf16", "iqn_head_bwd_d_bf16"),
 }
 # Launches a learning superstep of dqn/pong (act and target: K3a twice).
 DQN_PER_LEARNING_SUPERSTEP = {"gather_windows": 1, "pooled_frame_to_84": 1,
@@ -272,9 +303,9 @@ def graph_ms(fn, sets=((),), reps: int = 5) -> float:
   return start.elapsed_time(end) / (reps * 2 * len(sets))
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS):
   t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-  t_ops = flops / PEAK_F32_FLOPS * 1e3
+  t_ops = flops / peak_flops * 1e3
   return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -320,13 +351,13 @@ def phase_kernels(dev):
   results = {}
 
   def report(name, shape, err, tol, ms, plain_ms, library_ms, nbytes, flops,
-             **extra):
-    b_ms, b_by = bound(nbytes, flops)
+             peak_flops=PEAK_F32_FLOPS, **extra):
+    b_ms, b_by = bound(nbytes, flops, peak_flops)
     line = dict(name=name, shape=shape, max_abs_err=err, tolerance=tol,
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=b_ms, bound_by=b_by, **extra)
     tc = bound_3xtf32(nbytes, flops)
-    if tc is not None:
+    if tc is not None and peak_flops == PEAK_F32_FLOPS:
       line["bound_3xtf32_ms"] = tc
     print("KERNEL_CHECK " + json.dumps(line), flush=True)
     return line
@@ -583,6 +614,7 @@ def phase_kernels(dev):
         results[name] = line
 
   results.update(check_head_backward(dev, gen, report, head_inputs))
+  results.update(check_head_bf16(dev, gen, report, head_inputs))
   return results
 
 
@@ -754,6 +786,150 @@ def check_head_backward(dev, gen, report, head_inputs):
   return results
 
 
+def check_head_bf16(dev, gen, report, head_inputs):
+  """K4a (both variants), K4b and K4c in their bf16-operand mode (mm =
+  bf16) against their plain bf16 versions at the iqn path's shapes, each
+  against a second launch of itself bit for bit; timed beside the plain
+  version and the same products as bf16 cuBLAS calls (f32 accumulation,
+  bf16 outputs) on inputs cast beforehand. Bound at the card's bf16 rate.
+  Kernel and plain version round the same operands and sum exact products
+  in other orders, so an f32 value differing in its last bits (te, hi, h,
+  dte) may round to a neighbouring bf16 value in a few entries: each
+  output is held to a relative Frobenius error of 1e-4, but q to 5e-4 (a
+  sum of 512 products of bf16(h), where h's ~4e-4 flips move ~1e-4:
+  tests/test_torch_cuda.py), and q must lie nearer the plain bf16 head than
+  the f32 head does (a tenth of that distance); with h, q from the
+  kernel's own h within 1e-5."""
+  from dqn_zoo_torch.nets import iqn_head
+  mm = torch.bfloat16
+  bf = lambda *ts: [t.to(mm) for t in ts]
+  results = {}
+  tol = ("relative Frobenius <= 1e-4 per output, q <= 5e-4 (bf16 "
+         "operands)")
+
+  def fwd_library(we, be, wh, bh, wo, bo, cos2, s_emb, b, s):
+    te = torch.addmm(be, cos2, we).relu_()
+    hi = (te.view(b, s, -1) * s_emb[:, None, :]).view(b * s, -1)
+    return torch.addmm(bo, torch.addmm(bh, hi, wh).relu_(), wo)
+
+  with torch.no_grad():
+    for b, s, res, role in ((128, 64, False, "act"),
+                            (1024, 128, False, "learn_target"),
+                            (1024, 64, True, "learn_online")):
+      args = head_inputs(b, s, 6)
+      got = iqn_head.iqn_head_forward(*args, residuals=res, mm=mm)
+      again = iqn_head.iqn_head_forward(*args, residuals=res, mm=mm)
+      want_q, want_h = iqn_head.iqn_head_plain_residuals(*args, mm=mm)
+      f32_q = iqn_head.iqn_head_plain(*args)
+      got, again = (got, again) if res else ((got,), (again,))
+      if not all(torch.equal(u, v) for u, v in zip(got, again)):
+        fail(f"K4a bf16 at B={b} S={s}: two launches differ")
+      fro = rel_frobenius(got[0], want_q)
+      f32_fro = rel_frobenius(f32_q, want_q)
+      extra = {}
+      if res:
+        r = lambda t: t.to(mm).float()
+        q_from_h = (r(got[1]) @ r(args[4]) + args[5]).reshape(b, s, -1)
+        extra = dict(h_rel_frobenius_err=rel_frobenius(got[1], want_h),
+                     q_from_own_h_rel_frobenius_err=rel_frobenius(
+                         got[0], q_from_h))
+      if not (fro <= 5e-4 and fro < 0.1 * f32_fro and
+              extra.get("h_rel_frobenius_err", 0.0) <= 1e-4 and
+              extra.get("q_from_own_h_rel_frobenius_err", 0.0) <= 1e-5):
+        fail(f"K4a bf16 at B={b} S={s}: q {fro} (f32 head {f32_fro}), "
+             f"{extra}")
+      lib_args = bf(*args[:6]) + bf(args[6].reshape(b * s, -1), args[7])
+      name = "iqn_head_fwd_residuals_bf16" if res else "iqn_head_fwd_bf16"
+      nbytes, flops = iqn_head.bound_counts(b, s, 6, residuals=res)
+      iters = 5 if b == 1024 else 20
+      line = report(
+          name, f"B={b} S={s} A=6", float((got[0] - want_q).abs().max()),
+          tol,
+          time_ms(lambda: iqn_head.iqn_head_forward(*args, residuals=res,
+                                                    mm=mm), iters=iters),
+          time_ms(lambda: iqn_head.iqn_head_plain_residuals(*args, mm=mm),
+                  iters=iters),
+          time_ms(lambda: fwd_library(*lib_args, b, s), iters=iters),
+          nbytes, flops, peak_flops=PEAK_BF16_FLOPS, role=role,
+          rel_frobenius_err=fro, f32_head_rel_frobenius=f32_fro,
+          bit_identical_repeat=True, **extra)
+      if role in ("act", "learn_online"):
+        results[name] = line
+      del args, got, again, want_q, want_h, f32_q, lib_args
+
+    b, s = 1024, 64
+    args = head_inputs(b, s, 6)
+    we, be, wh, _, wo, _, cos_emb, s_emb = args
+    _, h = iqn_head.iqn_head_forward(*args, residuals=True, mm=mm)
+    dq = torch.randn((b * s, 6), generator=gen, device=dev)
+    dh = ((dq @ wo.t()) * (h > 0)).contiguous()
+    del h, dq
+    cos2 = cos_emb.reshape(b * s, -1)
+    lb = bf(we, be, wh, cos2, s_emb, dh)
+
+    w_args = (we, be, cos_emb, s_emb, dh)
+    got = iqn_head.iqn_head_bwd_w(*w_args, mm=mm)
+    again = iqn_head.iqn_head_bwd_w(*w_args, mm=mm)
+    if not all(torch.equal(u, v) for u, v in zip(got, again)):
+      fail("K4b bf16: two launches gave different bits")
+    want = iqn_head.iqn_head_bwd_w_plain(*w_args, mm=mm)
+    fros = [rel_frobenius(g, w) for g, w in zip(got, want)]
+    if not max(fros) <= 1e-4:
+      fail(f"K4b bf16 (dwh, dbh) against the plain version: {fros}")
+
+    def w_library(we, be, wh, cos2, s_emb, dh):
+      te = torch.addmm(be, cos2, we).relu_()
+      hi = (te.view(b, s, -1) * s_emb[:, None, :]).view(b * s, -1)
+      return torch.mm(hi.t(), dh), dh.sum(dim=0)
+
+    nbytes, flops = iqn_head.bound_counts_bwd_w(b, s)
+    results["iqn_head_bwd_w_bf16"] = report(
+        "iqn_head_bwd_w_bf16", f"B={b} S={s}",
+        max(float((g - w).abs().max()) for g, w in zip(got, want)), tol,
+        time_ms(lambda: iqn_head.iqn_head_bwd_w(*w_args, mm=mm), iters=5),
+        time_ms(lambda: iqn_head.iqn_head_bwd_w_plain(*w_args, mm=mm),
+                iters=5),
+        time_ms(lambda: w_library(*lb), iters=5), nbytes, flops,
+        peak_flops=PEAK_BF16_FLOPS, role="learn", rel_frobenius_err=max(fros),
+        bit_identical_repeat=True)
+    del got, again, want
+
+    d_args = (we, be, wh, cos_emb, s_emb, dh)
+    *got, mask = iqn_head.iqn_head_bwd_d(*d_args, return_te_mask=True,
+                                         mm=mm)
+    again = iqn_head.iqn_head_bwd_d(*d_args, return_te_mask=True, mm=mm)
+    if not all(torch.equal(u, v) for u, v in zip((*got, mask), again)):
+      fail("K4c bf16: two launches gave different bits")
+    want = iqn_head.iqn_head_bwd_d_plain(*d_args, te_mask=mask, mm=mm)
+    fros = [rel_frobenius(g, w) for g, w in zip(got, want)]
+    if not max(fros) <= 1e-4:
+      fail(f"K4c bf16 (dwe, dbe, ds_emb, dcos) against the plain version: "
+           f"{fros}")
+
+    def d_library(we, be, wh, cos2, s_emb, dh):
+      te_pre = torch.addmm(be, cos2, we)
+      dhi = torch.mm(dh, wh.t())
+      ds_emb = (dhi * te_pre.relu()).view(b, s, -1).sum(dim=1)
+      dte = (dhi.view(b, s, -1) * s_emb[:, None, :]).view(b * s, -1)
+      dte.mul_(te_pre > 0)
+      return torch.mm(cos2.t(), dte), dte.sum(dim=0), ds_emb
+
+    nbytes, flops = iqn_head.bound_counts_bwd_d(b, s, need_dcos=False)
+    results["iqn_head_bwd_d_bf16"] = report(
+        "iqn_head_bwd_d_bf16", f"B={b} S={s}",
+        max(float((g - w).abs().max()) for g, w in zip(got, want)), tol,
+        time_ms(lambda: iqn_head.iqn_head_bwd_d(*d_args, need_dcos=False,
+                                                mm=mm), iters=5),
+        time_ms(lambda: iqn_head.iqn_head_bwd_d_plain(
+            *d_args, need_dcos=False, mm=mm), iters=5),
+        time_ms(lambda: d_library(*lb), iters=5), nbytes, flops,
+        peak_flops=PEAK_BF16_FLOPS, role="learn", rel_frobenius_err=max(fros),
+        te_branch_flips=int((mask.bool() != (
+            cos2.to(mm).float() @ we.to(mm).float() + be > 0)).sum()),
+        bit_identical_repeat=True)
+  return results
+
+
 def phase_main_path(dev):
   """The port's dqn/pong trainer at full width, through the user's entry
   points; returns the launch counts."""
@@ -864,6 +1040,7 @@ def phase_main_path(dev):
   MAIN_READINGS.update(
       first_learning_superstep=first,
       ms_per_superstep=summary["ms_per_superstep"],
+      env_steps_per_s=summary["env_steps_per_s"],
       host_ms_per_other_superstep=summary["host_ms_per_other_superstep"])
   print("MAIN " + json.dumps(summary), flush=True)
 
@@ -874,6 +1051,136 @@ def phase_main_path(dev):
     for _ in range(3):
       state = engine.superstep(state)
   traced_window("MAIN", supersteps, PATH_KERNELS["dqn"])
+  return counts
+
+
+def bf16_layers_against_cpu(params, cpu_params, obs):
+  """The bf16 DQN network's five layers chained on `params`' device, each
+  also computed on the CPU and in f32 on that device from the same input:
+  {layer: (relative Frobenius of its bf16 pre-activation against the CPU's,
+  the f32 layer's against the same)} and the chain's q."""
+  from dqn_zoo_torch.nets import core
+
+  def linear(x, w, b, compute_dtype):
+    return core.linear(x, {"w": w, "b": b}, compute_dtype)
+
+  layers = [(params["torso"][name], cpu_params["torso"][name],
+             name, functools.partial(core.conv2d, stride=stride))
+            for name, stride in (("conv1", 4), ("conv2", 2), ("conv3", 1))]
+  layers += [(params["head"][name], cpu_params["head"][name], name, linear)
+             for name in ("hidden", "out")]
+  errs = {}
+  h = obs.to(torch.float32) * (1.0 / 255.0)
+  for p, p_cpu, name, layer in layers:
+    if name == "hidden":
+      h = core.flatten(h)
+    y = layer(h, p["w"], p["b"], compute_dtype=torch.bfloat16)
+    y_cpu = layer(h.cpu(), p_cpu["w"], p_cpu["b"],
+                  compute_dtype=torch.bfloat16)
+    y_f32 = layer(h, p["w"], p["b"], compute_dtype=torch.float32)
+    errs[name] = (rel_frobenius(y.cpu(), y_cpu),
+                  rel_frobenius(y_f32.cpu(), y_cpu))
+    h = y if name == "out" else core.relu(y)
+  return errs, h
+
+
+def phase_bf16_path(dev):
+  """BF16_MAIN: dqn/pong at the CLI defaults with compute_dtype=bfloat16
+  through the user's entry points. The torso is the cast convolutions
+  (cuDNN), as the reference's K3 computes in f32 only: K1 and K2 launch
+  once a learning superstep, K3a and K3b never. 20 warm, 100 timed and 20
+  fenced supersteps; the Q-values against the same bf16 network on the
+  CPU; returns the launch counts."""
+  from dqn_zoo_torch import kernels
+  from dqn_zoo_torch.run.train import build_engine
+
+  engine = build_engine("dqn", "pong", num_envs=128,
+                        replay_capacity=1_000_000,
+                        min_replay_capacity_fraction=0.002,
+                        spec_overrides=dict(compute_dtype="bfloat16"),
+                        device="cuda")
+  cfg = engine.config
+  if (cfg.batch_size, cfg.learn_every, cfg.updates_per_learn) != (1024, 1, 1) \
+      or engine.network.compute_dtype != torch.bfloat16:
+    fail(f"unexpected bf16 engine {cfg}")
+  state = engine.init(seed=1)
+  kernels.reset_counts()
+  warm, timed, fenced = 20, 100, 20
+  state = engine.run(state, warm)
+  torch.cuda.synchronize()
+  steps_before = state.telemetry.learn_steps
+  counts_before = kernels.counts()
+  t0 = time.perf_counter()
+  state = engine.run(state, timed)
+  torch.cuda.synchronize()
+  t_run = time.perf_counter() - t0
+  counts_after = kernels.counts()
+  if state.telemetry.learn_steps - steps_before != timed:
+    fail(f"{state.telemetry.learn_steps - steps_before} bf16 learn steps in "
+         f"{timed} timed supersteps")
+  per_learning_superstep = {
+      k: (counts_after[k] - counts_before[k]) / timed for k in counts_after}
+  want = {k: 0 for k in counts_after}
+  want.update({k: 1 for k in PATH_KERNELS["bf16"]})
+  if per_learning_superstep != want:
+    fail(f"launches per bf16 learning superstep {per_learning_superstep}, "
+         f"expected {want}")
+  split = {}
+  state = engine.run(state, fenced, timings=split)
+  torch.cuda.synchronize()
+  counts = kernels.counts()
+  m = engine.metrics(state)
+  if m.learn_steps < 20 or not math.isfinite(m.last_loss):
+    fail(f"bf16: {m.learn_steps} learn steps, loss {m.last_loss}")
+
+  # Q-values of the current observations: finite, (128, 6), and those of
+  # the same bf16 network on the CPU within 1e-3 relative Frobenius. Card
+  # and CPU multiply the same bf16 operands exactly and sum in other
+  # orders, so a layer's f32 output may differ in its last bits and round
+  # to a neighbouring bf16 operand of the next layer; such flips carry on
+  # to q, by a share of the f32 network's distance that depends on the
+  # trained weights and the frames. Whether the card computes in bf16 is
+  # therefore held layer by layer, where no flip carries: each layer's
+  # pre-activation on the card's input of that layer, card against CPU,
+  # within 1e-5 and under a hundredth of the f32 layer's distance; and the
+  # layers chained on the card give the network's q bit for bit.
+  from dqn_zoo_torch.nets import dqn_atari_network
+  from dqn_zoo_torch.utils.pytree import tree_map
+  obs = state.stack.frames
+  with torch.no_grad():
+    q = engine.network.apply(state.online_params, obs).q_values
+    cpu_params = tree_map(lambda t: t.detach().cpu(), state.online_params)
+    plain = engine.network.apply(cpu_params, obs.cpu()).q_values
+    f32 = dqn_atari_network(6).apply(state.online_params, obs).q_values
+    layer_errs, chained = bf16_layers_against_cpu(
+        state.online_params, cpu_params, obs)
+  if tuple(q.shape) != (128, 6) or not bool(torch.isfinite(q).all()):
+    fail(f"bad bf16 Q-values {tuple(q.shape)}")
+  q_err = rel_frobenius(q.cpu(), plain)
+  f32_err = rel_frobenius(f32.cpu(), plain)
+  if not q_err <= 1e-3:
+    fail(f"bf16 Q-values against the CPU: {q_err} (the f32 net: {f32_err})")
+  if not all(e <= 1e-5 and e < 0.01 * e32 for e, e32 in layer_errs.values()):
+    fail(f"bf16 layers against the CPU (bf16, f32): {layer_errs}")
+  if not torch.equal(chained, q):
+    fail(f"the bf16 layers chained give q {rel_frobenius(chained, q)} off "
+         "the network's")
+
+  agent_steps = timed * cfg.num_envs
+  summary = dict(
+      supersteps=warm + timed + fenced, learn_steps=m.learn_steps,
+      last_loss=m.last_loss, timed_supersteps=timed,
+      ms_per_superstep=1e3 * t_run / timed,
+      training_env_steps_per_s=agent_steps / t_run,
+      main_ms_per_superstep=MAIN_READINGS.get("ms_per_superstep"),
+      main_env_steps_per_s=MAIN_READINGS.get("env_steps_per_s"),
+      split_ms_per_superstep={k: 1e3 * v / fenced for k, v in split.items()},
+      launches_per_learning_superstep=per_learning_superstep,
+      q_rel_frobenius_err_vs_cpu=q_err,
+      f32_net_rel_frobenius_err_vs_cpu=f32_err,
+      layer_rel_frobenius_err_vs_cpu_bf16_f32=layer_errs,
+      peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=card())
+  print("BF16_MAIN " + json.dumps(summary), flush=True)
   return counts
 
 
@@ -1510,6 +1817,7 @@ def traced_window(label: str, fn, expect) -> dict:
 
 # What MAIN read that OVERLAP_MAIN is held against or printed beside.
 MAIN_READINGS = {}
+IQN_READINGS = {}
 
 
 def phase_host_path(dev):
@@ -1874,25 +2182,45 @@ def phase_learner_path(dev, name: str, game: str = "seaquest"):
   return counts
 
 
-def phase_iqn_path(dev, game: str = "pong"):
+def phase_iqn_path(dev, game: str = "pong", head_matmul_dtype=None):
   """The port's iqn trainer at full width (latent 64, 64 taus of each
   kind, D = 3136, H = 512, batch 1024) on pong (IQN_MAIN, A = 6) or
   ms_pacman (IQN_MS_PACMAN_MAIN, A = 9, episodes cut short by lost lives)
   through the user's entry points: the acting supersteps below the agent's
   own min fill, on past it through the learn steps, then eval. Prints the
   timed supersteps that took the reset branch and the replay-less
-  checkpoint's size against 64 MiB; returns the launch counts."""
+  checkpoint's size against 64 MiB; returns the launch counts. With
+  `head_matmul_dtype=torch.bfloat16` (IQN_BF16_HEAD, pong) the network is
+  built with the head's bf16-operand mode, as the reference's
+  tools/iqn_bf16_tpu.py builds it: K4a, K4b and K4c launch in their bf16
+  mode (the `*_bf16` entries) and their f32 entries not at all."""
   import shutil
-  from dqn_zoo_torch import kernels
+  from dqn_zoo_torch import kernels, nets
   from dqn_zoo_torch.engine.superstep import leaves
   from dqn_zoo_torch.nets import IqnInputs, dqn_torso, iqn_head
   from dqn_zoo_torch.replay.device_replay import replay_size
   from dqn_zoo_torch.run import checkpoint as ckpt
   from dqn_zoo_torch.run.train import build_engine, save_checkpoint
 
+  bf16 = head_matmul_dtype is not None
   tag = "IQN_MAIN" if game == "pong" else f"IQN_{game.upper()}_MAIN"
+  overrides = None
+  if bf16:
+    tag = "IQN_BF16_HEAD"
+    overrides = dict(make_network=lambda spec, n: nets.iqn_atari_network(
+        n, spec.tau_latent_dim, compute_dtype=spec.compute_dtype,
+        head_matmul_dtype=head_matmul_dtype))
+  sfx = "_bf16" if bf16 else ""
+  fwd, fwd_res, bwd_w, bwd_d = (k + sfx for k in (
+      "iqn_head_fwd", "iqn_head_fwd_residuals", "iqn_head_bwd_w",
+      "iqn_head_bwd_d"))
+  path = "iqn_bf16_head" if bf16 else "iqn"
   engine = build_engine("iqn", game, num_envs=128,
-                        replay_capacity=1_000_000, device="cuda")
+                        replay_capacity=1_000_000, spec_overrides=overrides,
+                        device="cuda")
+  if engine.network.head_matmul_dtype != head_matmul_dtype:
+    fail(f"{tag}: the network's head computes with "
+         f"{engine.network.head_matmul_dtype}")
   cfg, spec = engine.config, engine.spec
   a = engine.game.num_actions
   if a != {"pong": 6, "ms_pacman": 9}[game]:
@@ -1936,9 +2264,9 @@ def phase_iqn_path(dev, game: str = "pong"):
   if not size_warm < size_acting < min_fill:
     fail(f"iqn replay did not grow below its min fill: {size_warm} -> "
          f"{size_acting}")
-  if acting_counts["iqn_head_fwd"] != acting:
-    fail(f"iqn_head_fwd launches: {acting_counts['iqn_head_fwd']} in "
-         f"{acting} acting supersteps")
+  if acting_counts[fwd] != acting:
+    fail(f"{fwd} launches: {acting_counts[fwd]} in {acting} acting "
+         "supersteps")
 
   # On past the min fill: supersteps until the first learn step, 5 more to
   # warm the learn step up, then learning supersteps timed as they run and
@@ -1970,10 +2298,10 @@ def phase_iqn_path(dev, game: str = "pong"):
   if state.telemetry.learn_steps - steps_before != learn_timed:
     fail(f"{state.telemetry.learn_steps - steps_before} learn steps in "
          f"{learn_timed} timed supersteps")
-  want = {"iqn_head_fwd_residuals": 1, "iqn_head_bwd_w": 1,
-          "iqn_head_bwd_d": 1, "gather_windows": 1,
+  want = {fwd_res: 1, bwd_w: 1, bwd_d: 1, "gather_windows": 1,
           "dqn_torso_fwd_residuals": 1, "pooled_frame_to_84": 1,
-          "iqn_head_fwd": 2, "dqn_torso_fwd": 2}
+          fwd: 2, "dqn_torso_fwd": 2}
+  want = {k: want.get(k, 0) for k in per_learning_superstep}
   if per_learning_superstep != want:
     fail(f"launches per iqn learning superstep {per_learning_superstep}, "
          f"expected {want}")
@@ -1998,20 +2326,20 @@ def phase_iqn_path(dev, game: str = "pong"):
   if m.replay_size < min_fill:
     fail("iqn replay below its min fill after learning")
   # Act once per superstep and the target net once per learn step.
-  if train_counts["iqn_head_fwd"] != supersteps + m.learn_steps or \
-      counts["iqn_head_fwd"] != train_counts["iqn_head_fwd"] + 100:
-    fail(f"iqn_head_fwd launches: {train_counts['iqn_head_fwd']} in "
-         f"{supersteps} training supersteps with {m.learn_steps} learn "
-         f"steps, {counts['iqn_head_fwd']} with the 100 eval supersteps")
-  for name in ("iqn_head_fwd_residuals", "iqn_head_bwd_w", "iqn_head_bwd_d",
-               "gather_windows", "dqn_torso_fwd_residuals"):
+  if train_counts[fwd] != supersteps + m.learn_steps or \
+      counts[fwd] != train_counts[fwd] + 100:
+    fail(f"{fwd} launches: {train_counts[fwd]} in {supersteps} training "
+         f"supersteps with {m.learn_steps} learn steps, {counts[fwd]} with "
+         "the 100 eval supersteps")
+  for name in (fwd_res, bwd_w, bwd_d, "gather_windows",
+               "dqn_torso_fwd_residuals"):
     if counts[name] != m.learn_steps:
       fail(f"kernel {name} was launched {counts[name]} times in "
            f"{m.learn_steps} iqn learn steps")
-  for name in PATH_KERNELS["iqn"]:
+  for name in PATH_KERNELS[path]:
     if counts[name] == 0:
-      fail(f"kernel {name} was not launched on the iqn main path")
-  for name in ("pooled_frame_to_84", "dqn_torso_fwd", "iqn_head_fwd"):
+      fail(f"kernel {name} was not launched on the {path} path")
+  for name in ("pooled_frame_to_84", "dqn_torso_fwd", fwd):
     if counts[name] - train_counts[name] < 100:
       fail(f"kernel {name} was launched {counts[name] - train_counts[name]} "
            "times in the 100 iqn eval supersteps")
@@ -2042,15 +2370,24 @@ def phase_iqn_path(dev, game: str = "pong"):
         p["tau_embed"]["w"], p["tau_embed"]["b"], p["head"]["hidden"]["w"],
         p["head"]["hidden"]["b"], p["head"]["out"]["w"],
         p["head"]["out"]["b"], engine.network.cos_embedding(taus),
-        dqn_torso(p["torso"], obs))
+        dqn_torso(p["torso"], obs), mm=head_matmul_dtype)
   q_dist = out.q_dist
   if tuple(q_dist.shape) != (128, 64, a) or \
       tuple(out.q_values.shape) != (128, a) or \
       not bool(torch.isfinite(q_dist).all()):
     fail(f"bad iqn quantile values {tuple(q_dist.shape)}")
-  torch.testing.assert_close(q_dist, plain, rtol=1e-4, atol=1e-5)
-  torch.testing.assert_close(out.q_values, plain.mean(dim=1), rtol=1e-4,
-                             atol=1e-5)
+  if bf16:
+    # bf16 operands on both sides, exact products summed in other orders:
+    # a few entries round to a neighbouring bf16 value (2^-8 apart), so
+    # the whole tensor is held to a relative Frobenius error of 5e-4, as
+    # in check_head_bf16.
+    if not rel_frobenius(q_dist, plain) <= 5e-4:
+      fail(f"{tag} q_dist against the plain bf16 head: "
+           f"{rel_frobenius(q_dist, plain)}")
+  else:
+    torch.testing.assert_close(q_dist, plain, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(out.q_values, plain.mean(dim=1), rtol=1e-4,
+                               atol=1e-5)
 
   # The replay-less checkpoint a chain of legs carries between calls.
   root = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".ckpt",
@@ -2089,10 +2426,17 @@ def phase_iqn_path(dev, game: str = "pong"):
       train_launches=train_counts,
       eval_launches={k: counts[k] - train_counts[k] for k in counts},
       q_dist_max_abs_err=float((q_dist - plain).abs().max()),
+      q_dist_rel_frobenius_err=rel_frobenius(q_dist, plain),
       q_dist_shape=list(q_dist.shape),
       replayless_checkpoint_bytes=replayless_bytes,
       replayless_checkpoint_fits_64mib=replayless_bytes <= 64 * 2**20,
       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=card())
+  if tag == "IQN_MAIN":
+    IQN_READINGS.update(
+        ms_per_learning_superstep=summary["ms_per_learning_superstep"],
+        training_env_steps_per_s=summary["training_env_steps_per_s"])
+  elif bf16:  # beside the f32 head's, read in the same call
+    summary.update(f32_head=dict(IQN_READINGS))
   print(f"{tag} " + json.dumps(summary), flush=True)
   return counts
 
@@ -2794,6 +3138,7 @@ def main() -> int:
   # before the next is built.
   path_counts = {}
   for path, phase in (("dqn", phase_main_path),
+                      ("bf16", phase_bf16_path),
                       ("prioritized", phase_per_path),
                       ("rainbow", phase_rainbow_path),
                       ("rainbow_breakout", lambda d: phase_rainbow_path(
@@ -2810,6 +3155,8 @@ def main() -> int:
                       ("double_q", lambda d: phase_learner_path(
                           d, "double_q", "demon_attack")),
                       ("iqn", phase_iqn_path),
+                      ("iqn_bf16_head", lambda d: phase_iqn_path(
+                          d, head_matmul_dtype=torch.bfloat16)),
                       ("iqn_ms_pacman", lambda d: phase_iqn_path(
                           d, "ms_pacman")),
                       ("resume", phase_resume_path),

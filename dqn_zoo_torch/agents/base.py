@@ -75,6 +75,8 @@ class AgentSpec:
   exploration_epsilon_decay_frame_fraction: float = 0.02
   eval_exploration_epsilon: float = 0.05
   greedy_actor: bool = False
+  # The nets' product operands: "float32" or "bfloat16" (nets/core.py);
+  # parameters, gradients and the optimizer stay f32.
   compute_dtype: str = "float32"
   target_network_update_period: int = int(4e4)
   learn_period: int = 16

@@ -38,7 +38,8 @@ def c51_loss(spec, network, online_params, target_params, batch, weights):
 
 SPEC = register_agent(AgentSpec(
     name="c51",
-    make_network=lambda spec, n: nets.c51_atari_network(n, support(spec)),
+    make_network=lambda spec, n: nets.c51_atari_network(
+        n, support(spec), compute_dtype=spec.compute_dtype),
     loss=c51_loss,
     act=epsilon_greedy_act,
     exploration_epsilon_end=0.01,

@@ -43,7 +43,8 @@ def epsilon_greedy_act(spec, network, params, obs, epsilon, explore_u,
 
 SPEC = register_agent(AgentSpec(
     name="dqn",
-    make_network=lambda spec, n: nets.dqn_atari_network(n),
+    make_network=lambda spec, n: nets.dqn_atari_network(
+        n, compute_dtype=spec.compute_dtype),
     loss=q_learning_loss(double_q=False),
     act=epsilon_greedy_act,
 ))

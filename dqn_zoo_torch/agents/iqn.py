@@ -49,7 +49,7 @@ def iqn_act(spec, network, params, obs, epsilon, explore_u, random_action,
 SPEC = register_agent(AgentSpec(
     name="iqn",
     make_network=lambda spec, n: nets.iqn_atari_network(
-        n, spec.tau_latent_dim),
+        n, spec.tau_latent_dim, compute_dtype=spec.compute_dtype),
     loss=iqn_loss,
     act=iqn_act,
     act_takes_taus=True,

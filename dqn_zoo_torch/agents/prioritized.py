@@ -9,7 +9,8 @@ from dqn_zoo_torch.agents.dqn import epsilon_greedy_act, q_learning_loss
 
 SPEC = register_agent(AgentSpec(
     name="prioritized",
-    make_network=lambda spec, n: nets.double_dqn_atari_network(n),
+    make_network=lambda spec, n: nets.double_dqn_atari_network(
+        n, compute_dtype=spec.compute_dtype),
     loss=q_learning_loss(double_q=True),
     act=epsilon_greedy_act,
     exploration_epsilon_end=0.01,

@@ -36,7 +36,8 @@ def qrdqn_loss(spec, network, online_params, target_params, batch, weights):
 
 SPEC = register_agent(AgentSpec(
     name="qrdqn",
-    make_network=lambda spec, n: nets.qr_atari_network(n, quantiles(spec)),
+    make_network=lambda spec, n: nets.qr_atari_network(
+        n, quantiles(spec), compute_dtype=spec.compute_dtype),
     loss=qrdqn_loss,
     act=epsilon_greedy_act,
     exploration_epsilon_end=0.01,

@@ -54,7 +54,8 @@ def greedy_noisy_act(spec, network, params, obs, epsilon, explore_u,
 SPEC = register_agent(AgentSpec(
     name="rainbow",
     make_network=lambda spec, n: nets.rainbow_atari_network(
-        n, support(spec), spec.noisy_weight_init),
+        n, support(spec), spec.noisy_weight_init,
+        compute_dtype=spec.compute_dtype),
     loss=rainbow_loss,
     act=greedy_noisy_act,
     act_takes_noise=True,

@@ -57,6 +57,7 @@ from dqn_zoo_torch.device import resolve_device
 from dqn_zoo_torch.envs.api import get_game
 from dqn_zoo_torch.envs.vector import (EnvDraws, VecEnvState, VectorAtariEnv,
                                        VectorEnvConfig)
+from dqn_zoo_torch.nets.core import COMPUTE_DTYPES
 from dqn_zoo_torch.ops.policy import epsilon_greedy_draws
 from dqn_zoo_torch.replay import device_replay as dr
 from dqn_zoo_torch.utils.pytree import leaves, tree_map
@@ -94,8 +95,9 @@ class EngineConfig:
   frame_multiplier: int = 1
 
   def __post_init__(self):
-    if self.agent.compute_dtype != "float32":
-      raise NotImplementedError("the port computes in float32 only.")
+    if self.agent.compute_dtype not in COMPUTE_DTYPES:
+      raise ValueError(f"compute_dtype must be one of {list(COMPUTE_DTYPES)}"
+                       f"; got {self.agent.compute_dtype!r}.")
 
   @property
   def replay_capacity(self) -> int:

@@ -12,12 +12,22 @@ network has "torso", "advantage" and "value", each stream {"hidden",
 nets/core.py).
 The torso flattens in (y, x, c) order as JAX flattens NHWC, so
 `head.hidden.w` carries across from JAX without a row permutation.
+
+Every factory takes `compute_dtype` (float32 or bfloat16, nets/core.py), as
+the JAX package's do. The torso is chosen from it once, when the network is
+built: kernel K3 for float32 (its plain version on the CPU), the cast
+convolutions of `core.conv2d` for bfloat16 (cuDNN on the card), as the
+reference's fused torso computes in f32 only and its bf16 torso is XLA's
+convolutions. The IQN head stays f32 under bfloat16, as the reference's
+does; its own `head_matmul_dtype` puts the fused head's products on bf16
+operands (K4a, K4b and K4c in their bf16 mode).
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple
 
 import torch
 
@@ -67,19 +77,43 @@ def dqn_torso(params, x: torch.Tensor) -> torch.Tensor:
       params["conv3"]["w"], params["conv3"]["b"], x)
 
 
-def dqn_value_head(params, h: torch.Tensor) -> torch.Tensor:
+def dqn_torso_cast(params, x: torch.Tensor,
+                   compute_dtype=torch.bfloat16) -> torch.Tensor:
+  """The same torso through `core.conv2d` at `compute_dtype`, on either
+  device: the reference's XLA torso."""
+  h = x.to(torch.float32) * (1.0 / 255.0)
+  for name, stride in (("conv1", 4), ("conv2", 2), ("conv3", 1)):
+    h = core.relu(core.conv2d(h, params[name]["w"], params[name]["b"],
+                              stride, compute_dtype))
+  return core.flatten(h)
+
+
+def torso_for(compute_dtype) -> Callable[..., torch.Tensor]:
+  """The torso a network of `compute_dtype` runs: K3 (`dqn_torso`) for
+  float32, `dqn_torso_cast` for bfloat16."""
+  dtype = core.torch_dtype(compute_dtype)
+  if dtype == torch.float32:
+    return dqn_torso
+  return functools.partial(dqn_torso_cast, compute_dtype=dtype)
+
+
+def dqn_value_head(params, h: torch.Tensor,
+                   compute_dtype=torch.float32) -> torch.Tensor:
   """linear 512 → ReLU → linear num_outputs."""
-  return core.linear(core.relu(core.linear(h, params["hidden"])),
-                     params["out"])
+  hidden = core.linear(h, params["hidden"], compute_dtype)
+  return core.linear(core.relu(hidden), params["out"], compute_dtype)
 
 
 class DqnAtariNetwork:
   """Classic DQN net: `init(generator, device)` and `apply(params, x)`.
   With `shared_bias` the last layer has one bias for all actions."""
 
-  def __init__(self, num_actions: int, shared_bias: bool = False):
+  def __init__(self, num_actions: int, shared_bias: bool = False,
+               compute_dtype=torch.float32):
     self.num_actions = num_actions
     self.shared_bias = shared_bias
+    self.compute_dtype = core.torch_dtype(compute_dtype)
+    self.torso = torso_for(self.compute_dtype)
 
   def init(self, gen: torch.Generator, device):
     return {
@@ -98,16 +132,19 @@ class DqnAtariNetwork:
 
   def apply(self, params, x: torch.Tensor) -> QNetworkOutputs:
     return QNetworkOutputs(q_values=dqn_value_head(
-        params["head"], dqn_torso(params["torso"], x)))
+        params["head"], self.torso(params["torso"], x), self.compute_dtype))
 
 
-def dqn_atari_network(num_actions: int) -> DqnAtariNetwork:
-  return DqnAtariNetwork(num_actions)
+def dqn_atari_network(num_actions: int,
+                      compute_dtype=torch.float32) -> DqnAtariNetwork:
+  return DqnAtariNetwork(num_actions, compute_dtype=compute_dtype)
 
 
-def double_dqn_atari_network(num_actions: int) -> DqnAtariNetwork:
+def double_dqn_atari_network(num_actions: int,
+                             compute_dtype=torch.float32) -> DqnAtariNetwork:
   """The DQN net with a shared-bias last layer (JAX nets/atari.py:133)."""
-  return DqnAtariNetwork(num_actions, shared_bias=True)
+  return DqnAtariNetwork(num_actions, shared_bias=True,
+                         compute_dtype=compute_dtype)
 
 
 class C51AtariNetwork:
@@ -115,11 +152,13 @@ class C51AtariNetwork:
   outputs, reshaped (B, A, atoms); q_values = Σ softmax · support,
   detached."""
 
-  def __init__(self, num_actions: int, support: torch.Tensor):
+  def __init__(self, num_actions: int, support: torch.Tensor,
+               compute_dtype=torch.float32):
     self.num_actions = num_actions
     self.support = _PerDevice(support)
     self.num_atoms = len(self.support)
-    self._body = DqnAtariNetwork(num_actions * self.num_atoms)
+    self._body = DqnAtariNetwork(num_actions * self.num_atoms,
+                                 compute_dtype=compute_dtype)
 
   def init(self, gen: torch.Generator, device):
     return self._body.init(gen, device)
@@ -133,9 +172,9 @@ class C51AtariNetwork:
     return C51NetworkOutputs(q_values=q_values, q_logits=q_logits)
 
 
-def c51_atari_network(num_actions: int,
-                      support: torch.Tensor) -> C51AtariNetwork:
-  return C51AtariNetwork(num_actions, support)
+def c51_atari_network(num_actions: int, support: torch.Tensor,
+                      compute_dtype=torch.float32) -> C51AtariNetwork:
+  return C51AtariNetwork(num_actions, support, compute_dtype)
 
 
 class QRAtariNetwork:
@@ -143,11 +182,13 @@ class QRAtariNetwork:
   outputs, reshaped quantiles first, (B, quantiles, A), as the JAX net
   lays them out; q_values = the mean over the quantiles, detached."""
 
-  def __init__(self, num_actions: int, quantiles: torch.Tensor):
+  def __init__(self, num_actions: int, quantiles: torch.Tensor,
+               compute_dtype=torch.float32):
     self.num_actions = num_actions
     self.quantiles = _PerDevice(quantiles)
     self.num_quantiles = len(self.quantiles)
-    self._body = DqnAtariNetwork(self.num_quantiles * num_actions)
+    self._body = DqnAtariNetwork(self.num_quantiles * num_actions,
+                                 compute_dtype=compute_dtype)
 
   def init(self, gen: torch.Generator, device):
     return self._body.init(gen, device)
@@ -159,9 +200,9 @@ class QRAtariNetwork:
                             q_dist=q_dist)
 
 
-def qr_atari_network(num_actions: int,
-                     quantiles: torch.Tensor) -> QRAtariNetwork:
-  return QRAtariNetwork(num_actions, quantiles)
+def qr_atari_network(num_actions: int, quantiles: torch.Tensor,
+                     compute_dtype=torch.float32) -> QRAtariNetwork:
+  return QRAtariNetwork(num_actions, quantiles, compute_dtype)
 
 
 class IqnInputs(NamedTuple):
@@ -183,11 +224,18 @@ class IqnAtariNetwork:
   shared value head is applied per τ sample; q = mean over samples. The
   cosine features are plain PyTorch; everything from there to q_dist is
   kernel K4a on CUDA and its plain version on the CPU (nets/iqn_head.py).
+  `compute_dtype` sets the torso's; the head is f32 unless
+  `head_matmul_dtype` is torch.bfloat16, which rounds the head's product
+  operands to bf16 (the reference's `head_matmul_dtype`).
   """
 
-  def __init__(self, num_actions: int, latent_dim: int):
+  def __init__(self, num_actions: int, latent_dim: int,
+               compute_dtype=torch.float32, head_matmul_dtype=None):
     self.num_actions = num_actions
     self.latent_dim = latent_dim
+    self.compute_dtype = core.torch_dtype(compute_dtype)
+    self.torso = torso_for(self.compute_dtype)
+    self.head_matmul_dtype = iqn_head.matmul_dtype(head_matmul_dtype)
 
   def init(self, gen: torch.Generator, device):
     return {
@@ -210,18 +258,22 @@ class IqnAtariNetwork:
     return torch.cos(pi_mult[None, None, :] * taus[:, :, None])
 
   def apply(self, params, inputs: IqnInputs) -> IqnOutputs:
-    state_embedding = dqn_torso(params["torso"], inputs.state)
+    state_embedding = self.torso(params["torso"], inputs.state)
     hd = params["head"]
     q_dist = iqn_head.iqn_head(
         params["tau_embed"]["w"], params["tau_embed"]["b"],
         hd["hidden"]["w"], hd["hidden"]["b"], hd["out"]["w"], hd["out"]["b"],
-        self.cos_embedding(inputs.taus), state_embedding)
+        self.cos_embedding(inputs.taus), state_embedding,
+        mm=self.head_matmul_dtype)
     return IqnOutputs(q_values=torch.mean(q_dist, dim=1).detach(),
                       q_dist=q_dist)
 
 
-def iqn_atari_network(num_actions: int, latent_dim: int) -> IqnAtariNetwork:
-  return IqnAtariNetwork(num_actions, latent_dim)
+def iqn_atari_network(num_actions: int, latent_dim: int,
+                      compute_dtype=torch.float32,
+                      head_matmul_dtype=None) -> IqnAtariNetwork:
+  return IqnAtariNetwork(num_actions, latent_dim, compute_dtype,
+                         head_matmul_dtype)
 
 
 class RainbowNoise(NamedTuple):
@@ -246,16 +298,18 @@ class RainbowAtariNetwork:
   advantage stream: noisy 512 → ReLU → noisy A·atoms, no bias;
   value stream: noisy 512 → ReLU → noisy atoms, no bias;
   q_logits = value + advantage − mean_a(advantage), a softmax over atoms,
-  q_values = Σ softmax · support. The torso is kernel K3 on CUDA; the
-  noisy layers are plain f32 products.
+  q_values = Σ softmax · support. The torso is `torso_for(compute_dtype)`
+  (K3 for f32); the noisy layers are plain products at `compute_dtype`.
   """
 
   def __init__(self, num_actions: int, support: torch.Tensor,
-               noisy_weight_init: float):
+               noisy_weight_init: float, compute_dtype=torch.float32):
     self.num_actions = num_actions
     self.support = _PerDevice(support)
     self.num_atoms = len(self.support)
     self.noisy_weight_init = noisy_weight_init
+    self.compute_dtype = core.torch_dtype(compute_dtype)
+    self.torso = torso_for(self.compute_dtype)
 
   def init(self, gen: torch.Generator, device):
     nl = lambda fan_in, n, bias: core.noisy_linear_init(
@@ -284,15 +338,16 @@ class RainbowAtariNetwork:
     e = core.noise_draw(gen, tuple(lead) + (sum(sizes),), device)
     return RainbowNoise(*torch.split(e, sizes, dim=-1))
 
-  @staticmethod
-  def _stream(p, h, eps_hidden_in, eps_hidden_out, eps_out_in, eps_out_out):
+  def _stream(self, p, h, eps_hidden_in, eps_hidden_out, eps_out_in,
+              eps_out_out):
     h = core.relu(core.noisy_linear(h, p["hidden"], eps_hidden_in,
-                                    eps_hidden_out))
-    return core.noisy_linear(h, p["out"], eps_out_in, eps_out_out)
+                                    eps_hidden_out, self.compute_dtype))
+    return core.noisy_linear(h, p["out"], eps_out_in, eps_out_out,
+                             self.compute_dtype)
 
   def apply(self, params, x: torch.Tensor,
             noise: RainbowNoise) -> C51NetworkOutputs:
-    embed = dqn_torso(params["torso"], x)
+    embed = self.torso(params["torso"], x)
     advantage = self._stream(params["advantage"], embed, *noise[:4])
     advantage = advantage.reshape(-1, self.num_actions, self.num_atoms)
     value = self._stream(params["value"], embed, *noise[4:])
@@ -305,5 +360,7 @@ class RainbowAtariNetwork:
 
 
 def rainbow_atari_network(num_actions: int, support: torch.Tensor,
-                          noisy_weight_init: float) -> RainbowAtariNetwork:
-  return RainbowAtariNetwork(num_actions, support, noisy_weight_init)
+                          noisy_weight_init: float,
+                          compute_dtype=torch.float32) -> RainbowAtariNetwork:
+  return RainbowAtariNetwork(num_actions, support, noisy_weight_init,
+                             compute_dtype)

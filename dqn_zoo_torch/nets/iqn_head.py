@@ -36,6 +36,16 @@ kernels' arithmetic out step by step (no autograd). `iqn_head` takes the
 plain version for CPU tensors only; on CUDA it launches K4a and, under grad,
 goes through the autograd Function `_IqnHead`, whose backward launches K4b
 and K4c.
+
+`mm` is the reference's operand type of the heavy products (its `_dot`):
+None (f32) or torch.bfloat16. Under bf16 the operands of cos @ we, hi @ wh
+and h @ wo (K4a), of cos @ we and hiᵀ @ dh (K4b) and of cos @ we, dh @ whᵀ,
+cosᵀ @ dte and dte @ weᵀ (K4c) are rounded to bf16 (to nearest even) and
+the products accumulate in f32; the stream broadcast, h as stored, ds_emb,
+dbe, dbh and the wo-layer gradients stay f32. The gradients are then the
+reference's custom VJP, not autograd through the casts: `_IqnHead` is taken
+on both devices, with the plain functions on the CPU and K4a, K4b and K4c
+in their bf16 mode (registered apart, `*_bf16`) on the card.
 """
 
 from __future__ import annotations
@@ -61,22 +71,55 @@ BWD_W = kernels.register(kernels.Kernel(
 BWD_D = kernels.register(kernels.Kernel(
     "iqn_head_bwd_d", "iqn_head_bwd.cu", "dz_iqn_head_bwd_d",
     [kernels.P] * 12 + [kernels.I] * 4 + [kernels.P]))
+# The same kernels with their product operands rounded to bf16 (mm=bf16).
+FWD_BF16 = kernels.register(kernels.Kernel(
+    "iqn_head_fwd_bf16", "iqn_head.cu", "dz_iqn_head_bf16", _ARGS))
+FWD_RES_BF16 = kernels.register(kernels.Kernel(
+    "iqn_head_fwd_residuals_bf16", "iqn_head.cu", "dz_iqn_head_bf16", _ARGS))
+BWD_W_BF16 = kernels.register(kernels.Kernel(
+    "iqn_head_bwd_w_bf16", "iqn_head_bwd.cu", "dz_iqn_head_bwd_w_bf16",
+    BWD_W.argtypes))
+BWD_D_BF16 = kernels.register(kernels.Kernel(
+    "iqn_head_bwd_d_bf16", "iqn_head_bwd.cu", "dz_iqn_head_bwd_d_bf16",
+    BWD_D.argtypes))
 
 
-def iqn_head_plain_residuals(we, be, wh, bh, wo, bo, cos_emb, s_emb):
-  """(q (B, S, A), h (B·S, H)) through plain PyTorch ops."""
+def matmul_dtype(mm):
+  """None for f32 operands (None or torch.float32), torch.bfloat16 for
+  bf16 ones; ValueError on anything else."""
+  if mm is None or mm == torch.float32:
+    return None
+  if mm == torch.bfloat16:
+    return mm
+  raise ValueError(f"iqn_head: mm must be None, torch.float32 or "
+                   f"torch.bfloat16; got {mm}.")
+
+
+def _rounder(mm):
+  """t -> t rounded to mm and back to f32 (identity for f32 operands)."""
+  if mm is None:
+    return lambda t: t
+  return lambda t: t.to(mm).to(torch.float32)
+
+
+def iqn_head_plain_residuals(we, be, wh, bh, wo, bo, cos_emb, s_emb,
+                             mm=None):
+  """(q (B, S, A), h (B·S, H)) through plain PyTorch ops; h unrounded."""
+  r = _rounder(mm)
   b, s, l = cos_emb.shape
   d = s_emb.shape[1]
-  te = torch.relu(cos_emb.reshape(b * s, l) @ we + be)
+  te = torch.relu(r(cos_emb.reshape(b * s, l)) @ r(we) + be)
   hi = te.reshape(b, s, d) * s_emb[:, None, :]
-  h = torch.relu(hi.reshape(b * s, d) @ wh + bh)
-  q = h @ wo + bo
+  h = torch.relu(r(hi.reshape(b * s, d)) @ r(wh) + bh)
+  q = r(h) @ r(wo) + bo
   return q.reshape(b, s, -1), h
 
 
-def iqn_head_plain(we, be, wh, bh, wo, bo, cos_emb, s_emb) -> torch.Tensor:
+def iqn_head_plain(we, be, wh, bh, wo, bo, cos_emb, s_emb,
+                   mm=None) -> torch.Tensor:
   """q (B, S, A) from cos_emb (B, S, latent) and s_emb (B, D)."""
-  return iqn_head_plain_residuals(we, be, wh, bh, wo, bo, cos_emb, s_emb)[0]
+  return iqn_head_plain_residuals(we, be, wh, bh, wo, bo, cos_emb, s_emb,
+                                  mm)[0]
 
 
 def _dims(cos_emb, s_emb, a: int):
@@ -160,8 +203,9 @@ def chunks_per_split(splits: int, d: int = 3136) -> int:
 
 
 def iqn_head_forward(we, be, wh, bh, wo, bo, cos_emb, s_emb,
-                     residuals: bool):
-  """Launches K4a: returns q (B, S, A), or (q, h (B·S, H)) with residuals.
+                     residuals: bool, mm=None):
+  """Launches K4a (in its bf16 mode for mm=bf16): returns q (B, S, A), or
+  (q, h (B·S, H)) with residuals.
   Takes no gradient: the tensors' autograd history is not followed. With
   `d_splits` > 1 the blocks' partials of hi @ wh go through a scratch
   buffer of (splits, B·S, H) floats."""
@@ -175,7 +219,10 @@ def iqn_head_forward(we, be, wh, bh, wo, bo, cos_emb, s_emb,
   splits = d_splits(b, s, d)
   part = torch.empty((splits, b * s, HIDDEN), dtype=torch.float32,
                      device=dev) if splits > 1 else None
-  kernel = FWD_RES if residuals else FWD
+  if matmul_dtype(mm) is None:
+    kernel = FWD_RES if residuals else FWD
+  else:
+    kernel = FWD_RES_BF16 if residuals else FWD_BF16
   kernel.launch(cos_emb.data_ptr(), s_emb.data_ptr(), we.data_ptr(),
                 be.data_ptr(), wh.data_ptr(), bh.data_ptr(), wo.data_ptr(),
                 bo.data_ptr(), q.data_ptr(), _ptr(h), _ptr(part), b, s, d, a,
@@ -187,33 +234,35 @@ def iqn_head_forward(we, be, wh, bh, wo, bo, cos_emb, s_emb,
 # --- backward: plain versions --------------------------------------------------
 
 
-def iqn_head_bwd_w_plain(we, be, cos_emb, s_emb, dh):
+def iqn_head_bwd_w_plain(we, be, cos_emb, s_emb, dh, mm=None):
   """(dwh (D, H), dbh (H)) from dh (B·S, H), the cotangent of the hidden
   pre-activation: the arithmetic of the reference's `_bwd_w_kernel`."""
+  r = _rounder(mm)
   b, s, l = cos_emb.shape
-  te = torch.relu(cos_emb.reshape(b * s, l) @ we + be)
+  te = torch.relu(r(cos_emb.reshape(b * s, l)) @ r(we) + be)
   hi = te * s_emb.repeat_interleave(s, dim=0)
-  return hi.t() @ dh, dh.sum(dim=0)
+  return r(hi).t() @ r(dh), dh.sum(dim=0)
 
 
 def iqn_head_bwd_d_plain(we, be, wh, cos_emb, s_emb, dh,
-                         need_dcos: bool = True, te_mask=None):
+                         need_dcos: bool = True, te_mask=None, mm=None):
   """(dwe (latent, D), dbe (D), ds_emb (B, D), dcos (B, S, latent) or None)
   from dh: the arithmetic of the reference's `_bwd_d_kernel`. `te_mask`
   (B·S, D), when given, stands in for te_pre > 0 (a check hands in the
   kernel's own branch bits, see csrc/iqn_head_bwd.cu)."""
+  r = _rounder(mm)
   b, s, l = cos_emb.shape
   d = s_emb.shape[1]
-  cos2 = cos_emb.reshape(b * s, l)
-  te_pre = cos2 @ we + be
+  cos2 = r(cos_emb.reshape(b * s, l))
+  te_pre = cos2 @ r(we) + be
   te = torch.relu(te_pre)
-  dhi = dh @ wh.t()
+  dhi = r(dh) @ r(wh).t()
   ds_emb = (dhi * te).reshape(b, s, d).sum(dim=1)
   mask = te_pre > 0 if te_mask is None else te_mask.bool()
   dte = torch.where(mask, dhi * s_emb.repeat_interleave(s, dim=0),
                     torch.zeros_like(dhi))
-  dcos = (dte @ we.t()).reshape(b, s, l) if need_dcos else None
-  return cos2.t() @ dte, dte.sum(dim=0), ds_emb, dcos
+  dcos = (r(dte) @ r(we).t()).reshape(b, s, l) if need_dcos else None
+  return cos2.t() @ r(dte), dte.sum(dim=0), ds_emb, dcos
 
 
 def iqn_head_plain_masked(we, be, wh, bh, wo, bo, cos_emb, s_emb, te_mask,
@@ -254,25 +303,27 @@ def _ptr(t):
   return None if t is None else t.data_ptr()
 
 
-def iqn_head_bwd_w(we, be, cos_emb, s_emb, dh):
-  """Launches K4b: (dwh (D, H), dbh (H)) from dh (B·S, H)."""
+def iqn_head_bwd_w(we, be, cos_emb, s_emb, dh, mm=None):
+  """Launches K4b (in its bf16 mode for mm=bf16): (dwh (D, H), dbh (H))
+  from dh (B·S, H)."""
   b, s, d = _check_bwd(we, be, None, cos_emb, s_emb, dh)
   dev = cos_emb.device
   groups = row_groups(b, s)
   out, part = _sums_and_partials(d * HIDDEN + HIDDEN, groups, dev)
-  BWD_W.launch(cos_emb.data_ptr(), s_emb.data_ptr(), dh.data_ptr(),
+  kernel = BWD_W if matmul_dtype(mm) is None else BWD_W_BF16
+  kernel.launch(cos_emb.data_ptr(), s_emb.data_ptr(), dh.data_ptr(),
                we.data_ptr(), be.data_ptr(), out.data_ptr(), _ptr(part),
                b, s, d, groups, kernels.stream_ptr(dev))
   return out[:d * HIDDEN].view(d, HIDDEN), out[d * HIDDEN:]
 
 
 def iqn_head_bwd_d(we, be, wh, cos_emb, s_emb, dh, need_dcos: bool = True,
-                   return_te_mask: bool = False):
-  """Launches K4c: (dwe (latent, D), dbe (D), ds_emb (B, D), dcos (B, S,
-  latent) or None) from dh (B·S, H). dcos costs a scratch buffer of
-  (D / 32, B·S, latent) floats, summed over D by a small second kernel of
-  the same launch. With `return_te_mask` a fifth result is the kernel's own
-  te_pre > 0 as (B·S, D) uint8."""
+                   return_te_mask: bool = False, mm=None):
+  """Launches K4c (in its bf16 mode for mm=bf16): (dwe (latent, D), dbe
+  (D), ds_emb (B, D), dcos (B, S, latent) or None) from dh (B·S, H). dcos
+  costs a scratch buffer of (D / 32, B·S, latent) floats, summed over D by
+  a small second kernel of the same launch. With `return_te_mask` a fifth
+  result is the kernel's own te_pre > 0 as (B·S, D) uint8."""
   b, s, d = _check_bwd(we, be, wh, cos_emb, s_emb, dh)
   dev = cos_emb.device
   new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
@@ -284,7 +335,8 @@ def iqn_head_bwd_d(we, be, wh, cos_emb, s_emb, dh, need_dcos: bool = True,
     dcos, dcos_part = new(b, s, LATENT), new(d // D_MULTIPLE, b * s, LATENT)
   if return_te_mask:
     mask = torch.empty((b * s, d), dtype=torch.uint8, device=dev)
-  BWD_D.launch(cos_emb.data_ptr(), s_emb.data_ptr(), dh.data_ptr(),
+  kernel = BWD_D if matmul_dtype(mm) is None else BWD_D_BF16
+  kernel.launch(cos_emb.data_ptr(), s_emb.data_ptr(), dh.data_ptr(),
                we.data_ptr(), be.data_ptr(), wh.data_ptr(), out.data_ptr(),
                _ptr(part), ds_emb.data_ptr(), _ptr(dcos), _ptr(dcos_part),
                _ptr(mask), b, s, d, groups, kernels.stream_ptr(dev))
@@ -293,52 +345,70 @@ def iqn_head_bwd_d(we, be, wh, cos_emb, s_emb, dh, need_dcos: bool = True,
 
 
 def iqn_head_backward(we, be, wh, wo, cos_emb, s_emb, h, dq, bwd_w, bwd_d,
-                      need_dcos: bool = True):
+                      need_dcos: bool = True, mm=None):
   """The reference's `_iqn_head_bwd`: gradients of the eight arguments (in
   their order) from dq (B, S, A) and the saved h. The wo-layer gradients are
-  plain ops; `bwd_w` and `bwd_d` are the two kernels' wrappers or their plain
-  versions."""
+  plain f32 ops; `bwd_w` and `bwd_d` are the two kernels' wrappers or their
+  plain versions, given `mm`."""
   b, s, _ = cos_emb.shape
   dq2 = dq.reshape(b * s, -1)
   dwo = h.t() @ dq2
   dbo = dq2.sum(dim=0)
   dh = (dq2 @ wo.t()) * (h > 0)
-  dwh, dbh = bwd_w(we, be, cos_emb, s_emb, dh)
+  dwh, dbh = bwd_w(we, be, cos_emb, s_emb, dh, mm=mm)
   dwe, dbe, ds_emb, dcos = bwd_d(we, be, wh, cos_emb, s_emb, dh,
-                                 need_dcos=need_dcos)
+                                 need_dcos=need_dcos, mm=mm)
   return dwe, dbe, dwh, dbh, dwo, dbo, dcos, ds_emb
 
 
 class _IqnHead(torch.autograd.Function):
-  """K4a with residuals forward; backward by the wo-layer's plain ops, then
-  K4b and K4c."""
+  """The reference's custom VJP. On the card: K4a with residuals forward;
+  backward by the wo-layer's plain ops, then K4b and K4c. On the CPU (taken
+  for mm=bf16 only): the plain versions of the same steps."""
 
   @staticmethod
-  def forward(ctx, we, be, wh, bh, wo, bo, cos_emb, s_emb):
-    q, h = iqn_head_forward(we, be, wh, bh, wo, bo, cos_emb, s_emb,
-                            residuals=True)
+  def forward(ctx, we, be, wh, bh, wo, bo, cos_emb, s_emb, mm):
+    args = (we, be, wh, bh, wo, bo, cos_emb, s_emb)
+    if cos_emb.device.type == "cpu":
+      q, h = iqn_head_plain_residuals(*args, mm=mm)
+    else:
+      q, h = iqn_head_forward(*args, residuals=True, mm=mm)
     ctx.save_for_backward(we, be, wh, wo, cos_emb, s_emb, h)
+    ctx.mm = mm
     return q
 
   @staticmethod
   def backward(ctx, dq):
-    return iqn_head_backward(*ctx.saved_tensors, dq.contiguous(),
-                             iqn_head_bwd_w, iqn_head_bwd_d,
-                             need_dcos=ctx.needs_input_grad[6])
+    if dq.device.type == "cpu":
+      bwd_w, bwd_d = iqn_head_bwd_w_plain, iqn_head_bwd_d_plain
+    else:
+      bwd_w, bwd_d = iqn_head_bwd_w, iqn_head_bwd_d
+    grads = iqn_head_backward(*ctx.saved_tensors, dq.contiguous(), bwd_w,
+                              bwd_d, need_dcos=ctx.needs_input_grad[6],
+                              mm=ctx.mm)
+    return grads + (None,)
 
 
-def iqn_head(we, be, wh, bh, wo, bo, cos_emb, s_emb) -> torch.Tensor:
-  """q (B, S, A) from cosine τ features and the torso embedding.
+def iqn_head(we, be, wh, bh, wo, bo, cos_emb, s_emb,
+             mm=None) -> torch.Tensor:
+  """q (B, S, A) from cosine τ features and the torso embedding; `mm` the
+  products' operand type (None or torch.float32: f32; torch.bfloat16).
 
-  CPU tensors take the plain version (differentiable by autograd). On CUDA
-  the kernels are launched: K4a with residuals inside the autograd Function
-  (backward K4b and K4c) when a gradient is wanted, else K4a forward only."""
+  CPU tensors take the plain version (for f32, differentiable by autograd;
+  for bf16, inside the autograd Function when a gradient is wanted). On
+  CUDA the kernels are launched: K4a with residuals inside the autograd
+  Function (backward K4b and K4c) when a gradient is wanted, else K4a
+  forward only."""
+  mm = matmul_dtype(mm)
   args = (we, be, wh, bh, wo, bo, cos_emb, s_emb)
-  if cos_emb.device.type == "cpu":
+  cpu = cos_emb.device.type == "cpu"
+  if cpu and mm is None:
     return iqn_head_plain(*args)
   if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-    return _IqnHead.apply(*args)
-  return iqn_head_forward(*args, residuals=False)
+    return _IqnHead.apply(*args, mm)
+  if cpu:
+    return iqn_head_plain(*args, mm=mm)
+  return iqn_head_forward(*args, residuals=False, mm=mm)
 
 
 def bound_counts(b: int, s: int, a: int, residuals: bool, d: int = 3136):

@@ -129,11 +129,17 @@ def torso_backward(x, w2, w3, z1, z2, out, dflat):
   return (to_hwio(dw1), db1, to_hwio(dw2), db2, to_hwio(dw3), db3)
 
 
-def dqn_torso(w1, b1, w2, b2, w3, b3, x: torch.Tensor) -> torch.Tensor:
+def dqn_torso(w1, b1, w2, b2, w3, b3, x: torch.Tensor,
+              compute_dtype=torch.float32) -> torch.Tensor:
   """(B, 84, 84, 4) u8 → (B, 3136) f32 embedding.
 
   CPU tensors take the plain version (autograd through F.conv2d). On CUDA:
-  K3b inside the autograd Function when a gradient is wanted, else K3a."""
+  K3b inside the autograd Function when a gradient is wanted, else K3a.
+  K3 computes in f32 only, as the reference's fused torso does: any other
+  `compute_dtype` raises (the bf16 torso is nets/atari.dqn_torso_cast)."""
+  if compute_dtype != torch.float32:
+    raise ValueError(f"K3 computes in float32; it cannot honour "
+                     f"compute_dtype={compute_dtype}.")
   if x.device.type == "cpu":
     return torso_plain(w1, b1, w2, b2, w3, b3, x)
   ws = (w1, b1, w2, b2, w3, b3)

@@ -37,6 +37,8 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from dqn_zoo_torch.device import resolve_device
+
 META = "meta.json"
 
 
@@ -228,17 +230,30 @@ class TorchCheckpoint:
     return self.meta()["extras"]
 
 
+def exchange_device(device=None) -> torch.device:
+  """Where the default process group's collectives take their tensors:
+  `device` when given; else the current card under NCCL (raising where
+  there is none), the CPU under any other backend (gloo)."""
+  if device is not None:
+    return torch.device(device)
+  if dist.get_backend() == "nccl":
+    resolve_device("cuda")
+    return torch.device("cuda", torch.cuda.current_device())
+  return torch.device("cpu")
+
+
 class RankCheckpoint(TorchCheckpoint):
   """The slot of a data-parallel run, saved and restored on every rank of
   the process group together: each rank writes `state.{saves}.rank{r}.pt`,
   then the first rank commits the meta file (with the world size) once
   every rank's file is written. The path must be on a file system that
-  every rank sees. `device` holds the few numbers the ranks exchange (the
-  card under NCCL)."""
+  every rank sees. `device` holds the few numbers the ranks exchange; None
+  resolves it as every entry point does: this rank's card under NCCL, the
+  CPU under gloo (`exchange_device`)."""
 
-  def __init__(self, path: str, device="cpu"):
+  def __init__(self, path: str, device=None):
     super().__init__(path)
-    self._device = torch.device(device)
+    self._device = exchange_device(device)
     self.rank = dist.get_rank()
     self.world_size = dist.get_world_size()
 

@@ -5,8 +5,9 @@ Usage: python -m dqn_zoo_torch.run.train --agent=dqn --environment_name=pong
 The reference's run protocol: iterations of (train phase, eval phase),
 iteration 0 eval-only, one CSV row and one log line per iteration with the
 reference's 13 fields plus `eval_frames`. Flag names are the JAX CLI's;
---compute_dtype=bfloat16, not ported yet, raises. --mesh_devices=N trains
-data-parallel over N ranks under torchrun (run/train_dist.py).
+--compute_dtype=bfloat16 computes the nets' products on bf16 operands
+(nets/core.py; any name but float32 and bfloat16 raises). --mesh_devices=N
+trains data-parallel over N ranks under torchrun (run/train_dist.py).
 Agents: dqn, double_q, prioritized, iqn, rainbow, c51 and qrdqn (each also
 has its runner, `python -m dqn_zoo_torch.run.agents.<agent>`). Games, all
 25 of the JAX package's: pong, catch, seaquest, breakout, space_invaders,
@@ -41,6 +42,7 @@ import torch
 from dqn_zoo_torch.agents import all_agent_names, get_agent
 from dqn_zoo_torch.engine import Engine, EngineConfig
 from dqn_zoo_torch.envs.vector import VectorEnvConfig
+from dqn_zoo_torch.nets.core import COMPUTE_DTYPES
 from dqn_zoo_torch.run import atari_data
 from dqn_zoo_torch.run.checkpoint import NullCheckpoint, TorchCheckpoint
 from dqn_zoo_torch.run.trackers import StepRateTracker
@@ -182,7 +184,7 @@ def _parser() -> argparse.ArgumentParser:
       "processes); 0 = one device.")
   add("--device", default="cuda", help="cuda (default) or cpu.")
   add("--compute_dtype", default="",
-      help="float32 (default); bfloat16 is not ported yet.")
+      help="float32 (default) or bfloat16.")
   add("--num_action_repeats", type=int, default=0,
       help="Raw frames per agent step; only 4 (or 0 = 4).")
   add("--num_stacked_frames", type=int, default=0,
@@ -208,9 +210,9 @@ def _spec_overrides(args) -> dict:
   if args.num_stacked_frames not in (0, 4):
     raise ValueError("num_stacked_frames: only 4 is supported; got "
                      f"{args.num_stacked_frames}.")
-  if args.compute_dtype not in ("", "float32"):
-    raise NotImplementedError("--compute_dtype: the port computes in float32 "
-                              f"only; got {args.compute_dtype!r}.")
+  if args.compute_dtype not in ("", *COMPUTE_DTYPES):
+    raise ValueError(f"--compute_dtype: one of {list(COMPUTE_DTYPES)}; got "
+                     f"{args.compute_dtype!r}.")
   out = {}
   for name in _SPEC_FLOATS:
     if getattr(args, name) is not None:

@@ -442,6 +442,158 @@ def test_k4_function_skips_dcos_when_the_features_want_no_gradient(dev):
   assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 
+# --- the IQN head's bf16-operand mode (mm = bf16) -----------------------------
+# Kernel and plain version both round the same operands to bf16 and
+# accumulate exact products in f32, in other orders; an f32 value that
+# differs in its last bits (te, hi, h, dte) may then round to a
+# neighbouring bf16 value, 2^-8 to 2^-7 apart, in a few entries. So every
+# output is held by its relative Frobenius error, not elementwise: <= 1e-4,
+# but q <= 5e-4. q is a sum of only 512 products of bf16(h), and h, a sum
+# of 3,136 terms, differs by ~25 f32 ulps between the two orders, so ~4e-4
+# of its entries round to the other neighbour, each moving one product by
+# 2^-8: ~1e-4 of q (1.2e-4 read at B = 4 on the card). The epilogue itself
+# is held tighter: q from the kernel's own h within 1e-5.
+
+BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize("b,s,residuals", [(128, 64, False),
+                                            (1024, 64, True),
+                                            (1024, 128, False),
+                                            (4, 64, False)],
+                         ids=["act", "learn_online", "learn_target", "eval"])
+def test_k4a_bf16_matches_plain(dev, b, s, residuals):
+  args = _head_inputs(dev, b, s, 6, 23)
+  kernel = iqn_head.FWD_RES_BF16 if residuals else iqn_head.FWD_BF16
+  before = [k.launches for k in (kernel, iqn_head.FWD, iqn_head.FWD_RES)]
+  with torch.no_grad():
+    got = iqn_head.iqn_head_forward(*args, residuals=residuals, mm=BF16)
+    again = iqn_head.iqn_head_forward(*args, residuals=residuals, mm=BF16)
+    want_q, want_h = iqn_head.iqn_head_plain_residuals(*args, mm=BF16)
+    f32_q = iqn_head.iqn_head_plain(*args)
+  torch.cuda.synchronize()
+  assert [k.launches for k in (kernel, iqn_head.FWD, iqn_head.FWD_RES)] == \
+      [before[0] + 2] + before[1:]
+  got, again = ((got, again) if residuals else ((got,), (again,)))
+  assert all(torch.equal(u, v) for u, v in zip(got, again))
+  assert _rel(got[0], want_q) <= 5e-4
+  assert _rel(got[0], want_q) < 0.1 * _rel(f32_q, want_q)  # it is bf16
+  if residuals:
+    assert _rel(got[1], want_h) <= 1e-4
+    we, be, wh, bh, wo, bo, cos_emb, s_emb = args
+    r = lambda t: t.to(BF16).float()
+    q_from_h = (r(got[1]) @ r(wo) + bo).reshape(b, s, -1)
+    assert _rel(got[0], q_from_h) <= 1e-5
+
+
+def test_k4b_k4c_bf16_match_plain(dev):
+  """K4b and K4c in bf16 mode at the learn shape (B = 1024, S = 64), K4c
+  with dcos and against the plain version with its own te_pre > 0 bits;
+  each launch repeated bit for bit."""
+  b, s = 1024, 64
+  args = _head_inputs(dev, b, s, 6, 24)
+  we, be, wh, _, _, _, cos_emb, s_emb = args
+  dh = _head_dh(dev, args, 25)
+  before = [k.launches for k in (iqn_head.BWD_W_BF16, iqn_head.BWD_D_BF16,
+                                 iqn_head.BWD_W, iqn_head.BWD_D)]
+  w_args = (we, be, cos_emb, s_emb, dh)
+  got_w = iqn_head.iqn_head_bwd_w(*w_args, mm=BF16)
+  again_w = iqn_head.iqn_head_bwd_w(*w_args, mm=BF16)
+  d_args = (we, be, wh, cos_emb, s_emb, dh)
+  *got_d, mask = iqn_head.iqn_head_bwd_d(*d_args, return_te_mask=True,
+                                         mm=BF16)
+  again_d = iqn_head.iqn_head_bwd_d(*d_args, return_te_mask=True, mm=BF16)
+  torch.cuda.synchronize()
+  assert [k.launches for k in (iqn_head.BWD_W_BF16, iqn_head.BWD_D_BF16,
+                               iqn_head.BWD_W, iqn_head.BWD_D)] == \
+      [before[0] + 2, before[1] + 2] + before[2:]
+  assert all(torch.equal(u, v) for u, v in zip(got_w, again_w))
+  assert all(torch.equal(u, v) for u, v in zip((*got_d, mask), again_d))
+  want_w = iqn_head.iqn_head_bwd_w_plain(*w_args, mm=BF16)
+  f32_w = iqn_head.iqn_head_bwd_w_plain(*w_args)
+  for g, w, f in zip(got_w, want_w, f32_w):
+    assert _rel(g, w) <= 1e-4
+  assert _rel(got_w[0], want_w[0]) < 0.1 * _rel(f32_w[0], want_w[0])
+  want_d = iqn_head.iqn_head_bwd_d_plain(*d_args, te_mask=mask, mm=BF16)
+  for g, w in zip(got_d, want_d):
+    assert tuple(g.shape) == tuple(w.shape)
+    assert _rel(g, w) <= 1e-4
+
+
+def test_k4_bf16_function_matches_the_cpu(dev):
+  """iqn_head(mm=bf16) under grad on the card (K4a with residuals, K4b and
+  K4c in bf16 mode) against the same Function on the CPU (the plain
+  versions): q and all eight gradients within 1e-4 relative Frobenius."""
+  b, s, a = 16, 64, 6
+  args = _head_inputs(dev, b, s, a, 26)
+  dq = torch.randn((b, s, a), generator=_gen(27), device=dev)
+  counters = (iqn_head.FWD_RES_BF16, iqn_head.BWD_W_BF16,
+              iqn_head.BWD_D_BF16)
+  before = [k.launches for k in counters]
+  outs = {}
+  for d in (dev, "cpu"):
+    p = [t.to(d).clone().requires_grad_(True) for t in args]
+    q = iqn_head.iqn_head(*p, mm=BF16)
+    outs[d] = (q.detach().cpu(), [g.cpu() for g in torch.autograd.grad(
+        (q * dq.to(d)).sum(), p)])
+  torch.cuda.synchronize()
+  assert [k.launches for k in counters] == [n + 1 for n in before]
+  (q, g), (cq, cg) = outs[dev], outs["cpu"]
+  assert _rel(q, cq) <= 1e-4
+  for u, v in zip(g, cg):
+    assert _rel(u, v) <= 1e-4
+
+
+def test_bf16_dqn_supersteps_on_the_card_match_the_cpu(dev):
+  """dqn/pong at compute_dtype=bfloat16, 8 envs, on the card (K1, K2, the
+  cast torso on cuDNN, no K3) and on the CPU: each of 12 supersteps (10
+  learn steps) starts on both from the CPU's state and takes the same
+  draws. Actions and replay rows equal, the loss within rtol 1e-3, and
+  99.9 % of the weights within 2e-6 after the step, as test_torch_slice
+  holds f32. Each step starts anew because bf16 makes ReLU branch flips
+  common: an f32 difference in the last bits moves a bf16-rounded operand
+  by 2^-8, enough to take a pre-activation near 0 across it, and a
+  flipped hidden unit moves its weights by a share of one RMSProp step
+  (on an H100, 6.6e-5 at the 9th of a chained run's learn steps; none in
+  f32). One step bounds that: no weight moves by more than the saturated
+  step, lr·4.6."""
+  import dataclasses
+  from dqn_zoo_torch.agents import get_agent
+  from dqn_zoo_torch.engine import Engine, EngineConfig
+  from dqn_zoo_torch.engine.superstep import leaves
+  spec = dataclasses.replace(get_agent("dqn"), compute_dtype="bfloat16",
+                             target_network_update_period=96)
+  cfg = EngineConfig(agent=spec, game="pong", num_envs=8,
+                     slots_per_stream=16, batch_size=16,
+                     total_train_frames=20_000)
+  engines = {d: Engine(cfg, device=d) for d in ("cpu", dev)}
+  state = engines["cpu"].init(0)
+  torso = (torso_cuda.FWD, torso_cuda.FWD_RES)
+  before = [k.launches for k in torso]
+  gen = torch.Generator().manual_seed(4)
+  for step in range(12):
+    draws = engines["cpu"].draw(gen)
+    g = _to_device(state, dev)  # before the CPU's step, which works in place
+    g = engines[dev].superstep(g, _to_device(draws, dev))
+    c = engines["cpu"].superstep(state, draws)
+    for f in ("frames", "action", "reward", "discount", "is_terminal"):
+      assert torch.equal(getattr(g.replay, f).cpu(), getattr(c.replay, f)), \
+          (f, step)
+    assert g.telemetry.learn_steps == c.telemetry.learn_steps
+    if c.telemetry.learn_steps:
+      np.testing.assert_allclose(float(g.telemetry.last_loss),
+                                 float(c.telemetry.last_loss), rtol=1e-3)
+    diff = torch.cat([(x.cpu() - w).detach().abs().flatten()
+                      for x, w in zip(leaves(g.online_params),
+                                      leaves(c.online_params))])
+    assert float(diff.max()) <= 4.6 * spec.learning_rate, (step, diff.max())
+    assert float((diff <= 2e-6).float().mean()) >= 0.999, step
+    state = c
+  torch.cuda.synchronize()
+  assert state.telemetry.learn_steps >= 10
+  assert [k.launches for k in torso] == before  # K3 computes in f32 only
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
   with pytest.raises(ValueError):
     twg.gather_windows(torch.zeros((2, 8, 84, 84), device=dev),

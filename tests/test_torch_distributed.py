@@ -276,6 +276,22 @@ def test_checkpoint_roundtrip_two_ranks(tmp_path):
     tckpt.TorchCheckpoint(str(tmp_path / "lite")).restore(None)
 
 
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_rank_checkpoint_exchanges_on_the_groups_device(backend,
+                                                       monkeypatch):
+  """RankCheckpoint's device, with none asked for: the CPU under gloo, this
+  rank's card under NCCL (which raises on this machine, having no card);
+  a device asked for is kept under either backend."""
+  import torch.distributed as dist
+  monkeypatch.setattr(dist, "get_backend", lambda group=None: backend)
+  if backend == "gloo":
+    assert tckpt.exchange_device() == torch.device("cpu")
+  else:
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+      tckpt.exchange_device()
+  assert tckpt.exchange_device("cpu") == torch.device("cpu")
+
+
 def test_learn_gate_reads_the_least_replay_size_over_ranks(tmp_path):
   """A rank whose replay passed the min fill does not learn while another's
   has not (the replay size counts active rows, which differ between ranks

@@ -179,6 +179,7 @@ def mode_checkpoint(rank, world, workdir):
   trainer = trainer_from(workdir)
   state = trainer.run(trainer.init(3), 6)
   full = RankCheckpoint(os.path.join(workdir, "full"))
+  assert full._device == torch.device("cpu")  # gloo's: no device asked for
   full.save(state, 1, {}, train_done=6)
   restored, it, _, done = full.restore(trainer.init(4))
   assert (it, done) == (1, 6)

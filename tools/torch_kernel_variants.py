@@ -237,12 +237,12 @@ def k3_parts(dev, gen, parent=None) -> None:
 
 def k4a(dev, gen) -> None:
   src = (kernels.CSRC / "iqn_head.cu").read_text()
-  fold = "mma_3xtf32_rn(acc[i][j]"
+  fold = "mma_op_rn<kBf16>(acc[i][j]"
   if fold not in src:
     raise SystemExit("iqn_head.cu no longer has the per-k-step fold")
   libs = {"kernel": build("iqn_head", src),
           "no_fold": build("iqn_head_no_fold",
-                           src.replace(fold, "mma_3xtf32(acc[i][j]"))}
+                           src.replace(fold, "mma_op<kBf16>(acc[i][j]"))}
   for lib in libs.values():
     lib.dz_iqn_head.argtypes = ih._ARGS
     lib.dz_iqn_head.restype = ctypes.c_int
@@ -287,12 +287,12 @@ def k4a(dev, gen) -> None:
 
 def k4c(dev, gen) -> None:
   src = (kernels.CSRC / "iqn_head_bwd.cu").read_text()
-  plain = "mma_3xtf32(acc"
+  plain = "mma_op<kBf16>(acc"
   if src.count(plain) != 2:
     raise SystemExit("iqn_head_bwd.cu's dhi products are not as expected")
   libs = {"kernel": bwd_build("iqn_head_bwd", src),
           "dhi_fold": bwd_build("iqn_head_bwd_dhi_fold",
-                                src.replace(plain, "mma_3xtf32_rn(acc"))}
+                                src.replace(plain, "mma_op_rn<kBf16>(acc"))}
   for b, s, need_dcos in [(1024, 64, False), (128, 64, True)]:
     line = k4c_run(dev, gen, libs, b, s, need_dcos, check=True)
     print("K4C " + json.dumps(line), flush=True)
@@ -302,10 +302,11 @@ def k4c(dev, gen) -> None:
 K4C_CUTS = {
     "no_dh_copies": [
         ("if (q + kStages - 1 < nchunks) copy_dh(q + kStages - 1);", "")],
-    "no_dhi_mma": [("mma_3xtf32(acc[j], a0b", "(void)(acc[j], a0b"),
-                   ("mma_3xtf32(acc_odd[j], a1b", "(void)(acc_odd[j], a1b")],
-    "no_te_pre_mma": [("mma_3xtf32(tp[j], ab, as, bb, bs);", "")],
-    "no_dwe_mma": [("mma_3xtf32_rn(dwe_acc[jj], ab, as, bb, bs);", "")],
+    "no_dhi_mma": [("mma_op<kBf16>(acc[j], a0b", "(void)(acc[j], a0b"),
+                   ("mma_op<kBf16>(acc_odd[j], a1b",
+                    "(void)(acc_odd[j], a1b")],
+    "no_te_pre_mma": [("mma_op<kBf16>(tp[j], ab, as, bb, bs);", "")],
+    "no_dwe_mma": [("mma_op_rn<kBf16>(dwe_acc[jj], ab, as, bb, bs);", "")],
     "no_ds_emb_sums": [("k < nst; k += kWarps", "k < 0; k += kWarps")],
     "no_semb_loads": [("sv[h][j] = __ldg(reinterpret_cast<const float2*>"
                        "(sp + 8 * j));", "sv[h][j] = make_float2(1.f, 1.f);")],
@@ -314,14 +315,14 @@ K4C_CUTS = {
                            "\n\n    // dwe +=")],
 }
 K4C_CUTS["fp32_pipe_split"] = [  # Veltkamp's split on the FP32 pipe
-    ("split_tf32(", "split_fp32("),
+    ("split_op<kBf16>(", "split_fp32("),
     ('#include "tf32_mma.cuh"\n',
      '#include "tf32_mma.cuh"\nnamespace { __device__ __forceinline__ void '
      'split_fp32(float x, uint32_t& b, uint32_t& s) { const float c = '
      '__fmul_rn(x, 8193.f); const float h = __fsub_rn(c, __fsub_rn(c, x)); '
      'b = __float_as_uint(h); s = __float_as_uint(__fsub_rn(x, h)); } }\n')]
 K4C_CUTS["no_splits"] = [  # raw bits as both parts: no split instructions
-    ("split_tf32(", "split_none("),
+    ("split_op<kBf16>(", "split_none("),
     ('#include "tf32_mma.cuh"\n',
      '#include "tf32_mma.cuh"\nnamespace { __device__ __forceinline__ void '
      'split_none(float x, uint32_t& b, uint32_t& s) { b = s = '
@@ -352,9 +353,9 @@ def k4b(dev, gen) -> None:
 
 # K4b's phases, each cut out by replacing its text in the source.
 K4B_CUTS = {
-    "no_te_pre_mma": [("mma_3xtf32(tp[i][h], ab, as, bb[h], bs[h]);", "")],
-    "no_dwh_mma": [("mma_3xtf32(kFold ? pend[i][n] : acc[i][n], ab[i], as[i],"
-                    " bb, bs);", ";")],
+    "no_te_pre_mma": [("mma_op<kBf16>(tp[i][h], ab, as, bb[h], bs[h]);", "")],
+    "no_dwh_mma": [("mma_op<kBf16>(kFold ? pend[i][n] : acc[i][n], ab[i], "
+                    "as[i], bb,\n                          bs);", ";")],
     "no_dh_copies": [
         ("if (q + kWStages - 1 < nchunks) copy_dh(q + kWStages - 1);", "")],
     "no_splits": K4C_CUTS["no_splits"],

@@ -5,11 +5,12 @@
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. build every CUDA kernel from dqn_zoo_torch/csrc (one nvcc per source,
      all in parallel) and print the build time and what `-Xptxas -v` says
-     of each kernel (registers, static shared memory, spills; K4b's, K4c's
-     and K2's dynamic shared memory beside it);
+     of each kernel (registers, static shared memory, spills; K4b's and
+     K4c's, both modes, and K2's dynamic shared memory beside it);
   2. hold each kernel against its plain PyTorch version at the main paths'
      shapes (K1 at W = 5 and W = 7; K4a, K4b and K4c also in their
-     bf16-operand mode, bound at the bf16 rate), and time kernel, plain
+     bf16-operand mode, bound at the bf16 rate, K4b's and K4c's after the
+     staging pass that rounds their operands), and time kernel, plain
      version, library call and bound; then SEAQUEST: 64 groups of the
      port's vector seaquest at 128 envs on the card and on the CPU from the
      same draws
@@ -90,11 +91,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      superstep), and print the replay-less checkpoint's bytes; then
      IQN_BF16_HEAD, the same phase with the network built at
      head_matmul_dtype=bfloat16 (the bf16 entries of K4a, K4b and K4c 2,
-     1, 1, 1 a learning superstep, their f32 entries 0), its ms a learning
-     superstep beside the f32 head's; then IQN_MS_PACMAN_MAIN, the same
-     phase for build_engine("iqn", "ms_pacman", ...): 9 actions (K4a's last
-     column tile ragged), episodes cut short by lost lives, the timed
-     supersteps that took the reset branch counted;
+     1, 1, 1 a learning superstep, their staging pass 1, their f32 entries
+     0), its ms a learning superstep beside the f32 head's; then
+     IQN_MS_PACMAN_MAIN, the same phase for build_engine("iqn",
+     "ms_pacman", ...): 9 actions (K4a's last column tile ragged), episodes
+     cut short by lost lives, the timed supersteps that took the reset
+     branch counted;
   6. checkpoint/resume of the dqn/pong trainer at 5.'s shapes (RESUME):
      save with and without the replay (the 7.06 GB frame store), restore
      into a second engine and require every entry bit for bit; 40
@@ -172,6 +174,10 @@ TPU_KERNELS = {
     "iqn_head_fwd_residuals_bf16": "dqn_zoo_tpu/nets/iqn_head.py:115",
     "iqn_head_bwd_w_bf16": "dqn_zoo_tpu/nets/iqn_head.py:155",
     "iqn_head_bwd_d_bf16": "dqn_zoo_tpu/nets/iqn_head.py:203",
+    # The staging pass of the last two replaces no TPU kernel: it is the
+    # bf16 rounding of the reference's `_dot`, done once for both.
+    "iqn_head_stage_bf16": "none (the operand rounding of `_dot`, "
+                           "dqn_zoo_tpu/nets/iqn_head.py:92)",
 }
 SOURCES = {
     "gather_windows": "dqn_zoo_torch/csrc/window_gather.cu",
@@ -184,8 +190,9 @@ SOURCES = {
     "iqn_head_bwd_d": "dqn_zoo_torch/csrc/iqn_head_bwd.cu",
     "iqn_head_fwd_bf16": "dqn_zoo_torch/csrc/iqn_head.cu",
     "iqn_head_fwd_residuals_bf16": "dqn_zoo_torch/csrc/iqn_head.cu",
-    "iqn_head_bwd_w_bf16": "dqn_zoo_torch/csrc/iqn_head_bwd.cu",
-    "iqn_head_bwd_d_bf16": "dqn_zoo_torch/csrc/iqn_head_bwd.cu",
+    "iqn_head_bwd_w_bf16": "dqn_zoo_torch/csrc/iqn_head_bwd_bf16.cu",
+    "iqn_head_bwd_d_bf16": "dqn_zoo_torch/csrc/iqn_head_bwd_bf16.cu",
+    "iqn_head_stage_bf16": "dqn_zoo_torch/csrc/iqn_head_bwd_bf16.cu",
 }
 # The kernels each main path must launch.
 PATH_KERNELS = {
@@ -232,12 +239,13 @@ PATH_KERNELS = {
     # dqn/pong at compute_dtype=bfloat16: the cast torso on cuDNN, no K3
     # (the reference's fused torso computes in f32 only).
     "bf16": ("gather_windows", "pooled_frame_to_84"),
-    # iqn/pong with the head's bf16-operand mode: the f32 torso (K3) and
-    # the bf16 entries of K4a, K4b and K4c.
+    # iqn/pong with the head's bf16-operand mode: the f32 torso (K3), the
+    # bf16 entries of K4a, K4b and K4c and the latter two's staging pass.
     "iqn_bf16_head": ("gather_windows", "pooled_frame_to_84",
                       "dqn_torso_fwd", "dqn_torso_fwd_residuals",
                       "iqn_head_fwd_bf16", "iqn_head_fwd_residuals_bf16",
-                      "iqn_head_bwd_w_bf16", "iqn_head_bwd_d_bf16"),
+                      "iqn_head_bwd_w_bf16", "iqn_head_bwd_d_bf16",
+                      "iqn_head_stage_bf16"),
 }
 # Launches a learning superstep of dqn/pong (act and target: K3a twice).
 DQN_PER_LEARNING_SUPERSTEP = {"gather_windows": 1, "pooled_frame_to_84": 1,
@@ -799,7 +807,11 @@ def check_head_bf16(dev, gen, report, head_inputs):
   sum of 512 products of bf16(h), where h's ~4e-4 flips move ~1e-4:
   tests/test_torch_cuda.py), and q must lie nearer the plain bf16 head than
   the f32 head does (a tenth of that distance); with h, q from the
-  kernel's own h within 1e-5."""
+  kernel's own h within 1e-5. K4b and K4c take their operands from the
+  staging pass (csrc/iqn_head_bwd_bf16.cu), checked first: its bf16 copies
+  bit for bit the plain version's, bound by bytes; the two kernels are
+  timed on its output, as cuBLAS is on operands cast beforehand, and with
+  the staging pass beside (`ms_with_staging`)."""
   from dqn_zoo_torch.nets import iqn_head
   mm = torch.bfloat16
   bf = lambda *ts: [t.to(mm) for t in ts]
@@ -867,9 +879,39 @@ def check_head_bf16(dev, gen, report, head_inputs):
     cos2 = cos_emb.reshape(b * s, -1)
     lb = bf(we, be, wh, cos2, s_emb, dh)
 
+    # The staging pass, as the backward runs it (wh included): its bf16
+    # copies bit for bit the plain version's, dbh (summed in another order)
+    # within rtol 1e-5, atol 1e-6 x max|dbh|; a second launch the same bits.
+    st = iqn_head.iqn_head_stage_bf16(we, cos_emb, dh, wh)
+    again = iqn_head.iqn_head_stage_bf16(we, cos_emb, dh, wh)
+    want = iqn_head.iqn_head_stage_bf16_plain(we, cos_emb, dh, wh)
+    for name in ("dh", "cos", "we_t", "wh"):
+      if not torch.equal(getattr(st, name).view(torch.int16),
+                         getattr(want, name).view(torch.int16)):
+        fail(f"staging: the bf16 copy of {name} differs from the plain one")
+    if not all(torch.equal(u.view(torch.uint8), v.view(torch.uint8))
+               for u, v in zip(st, again)):
+      fail("staging: two launches gave different bits")
+    torch.testing.assert_close(st.dbh, want.dbh, rtol=1e-5,
+                               atol=1e-6 * float(want.dbh.abs().max()))
+    nbytes, flops = iqn_head.bound_counts_stage_bf16(b, s)
+    results["iqn_head_stage_bf16"] = report(
+        "iqn_head_stage_bf16", f"B={b} S={s}",
+        float((st.dbh - want.dbh).abs().max()),
+        "bf16 copies bit for bit; dbh rtol 1e-5, atol 1e-6 x max|dbh|",
+        time_ms(lambda: iqn_head.iqn_head_stage_bf16(we, cos_emb, dh, wh),
+                iters=20),
+        time_ms(lambda: iqn_head.iqn_head_stage_bf16_plain(we, cos_emb, dh,
+                                                           wh), iters=20),
+        None, nbytes, flops, role="learn", bit_identical_repeat=True,
+        dbh_rel_frobenius_err=rel_frobenius(st.dbh, want.dbh))
+    del again, want
+
+    # K4b and K4c on the staged operands (each timed without the staging,
+    # as bf16 cuBLAS is timed on operands cast beforehand; with it beside).
     w_args = (we, be, cos_emb, s_emb, dh)
-    got = iqn_head.iqn_head_bwd_w(*w_args, mm=mm)
-    again = iqn_head.iqn_head_bwd_w(*w_args, mm=mm)
+    got = iqn_head.iqn_head_bwd_w(*w_args, mm=mm, staged=st)
+    again = iqn_head.iqn_head_bwd_w(*w_args, mm=mm, staged=st)
     if not all(torch.equal(u, v) for u, v in zip(got, again)):
       fail("K4b bf16: two launches gave different bits")
     want = iqn_head.iqn_head_bwd_w_plain(*w_args, mm=mm)
@@ -886,18 +928,22 @@ def check_head_bf16(dev, gen, report, head_inputs):
     results["iqn_head_bwd_w_bf16"] = report(
         "iqn_head_bwd_w_bf16", f"B={b} S={s}",
         max(float((g - w).abs().max()) for g, w in zip(got, want)), tol,
-        time_ms(lambda: iqn_head.iqn_head_bwd_w(*w_args, mm=mm), iters=5),
+        time_ms(lambda: iqn_head.iqn_head_bwd_w(*w_args, mm=mm, staged=st),
+                iters=5),
         time_ms(lambda: iqn_head.iqn_head_bwd_w_plain(*w_args, mm=mm),
                 iters=5),
         time_ms(lambda: w_library(*lb), iters=5), nbytes, flops,
         peak_flops=PEAK_BF16_FLOPS, role="learn", rel_frobenius_err=max(fros),
-        bit_identical_repeat=True)
+        bit_identical_repeat=True, groups=iqn_head.bf16_groups_w(b, s),
+        ms_with_staging=time_ms(
+            lambda: iqn_head.iqn_head_bwd_w(*w_args, mm=mm), iters=5))
     del got, again, want
 
     d_args = (we, be, wh, cos_emb, s_emb, dh)
     *got, mask = iqn_head.iqn_head_bwd_d(*d_args, return_te_mask=True,
-                                         mm=mm)
-    again = iqn_head.iqn_head_bwd_d(*d_args, return_te_mask=True, mm=mm)
+                                         mm=mm, staged=st)
+    again = iqn_head.iqn_head_bwd_d(*d_args, return_te_mask=True, mm=mm,
+                                    staged=st)
     if not all(torch.equal(u, v) for u, v in zip((*got, mask), again)):
       fail("K4c bf16: two launches gave different bits")
     want = iqn_head.iqn_head_bwd_d_plain(*d_args, te_mask=mask, mm=mm)
@@ -919,14 +965,18 @@ def check_head_bf16(dev, gen, report, head_inputs):
         "iqn_head_bwd_d_bf16", f"B={b} S={s}",
         max(float((g - w).abs().max()) for g, w in zip(got, want)), tol,
         time_ms(lambda: iqn_head.iqn_head_bwd_d(*d_args, need_dcos=False,
-                                                mm=mm), iters=5),
+                                                mm=mm, staged=st), iters=5),
         time_ms(lambda: iqn_head.iqn_head_bwd_d_plain(
             *d_args, need_dcos=False, mm=mm), iters=5),
         time_ms(lambda: d_library(*lb), iters=5), nbytes, flops,
         peak_flops=PEAK_BF16_FLOPS, role="learn", rel_frobenius_err=max(fros),
         te_branch_flips=int((mask.bool() != (
             cos2.to(mm).float() @ we.to(mm).float() + be > 0)).sum()),
-        bit_identical_repeat=True)
+        bit_identical_repeat=True, groups=iqn_head.bf16_groups_d(b, s),
+        ms_with_staging=time_ms(lambda: iqn_head.iqn_head_bwd_d(
+            *d_args, need_dcos=False, mm=mm), iters=5),
+        with_dcos_ms=time_ms(lambda: iqn_head.iqn_head_bwd_d(
+            *d_args, mm=mm, staged=st), iters=5))
   return results
 
 
@@ -2193,7 +2243,8 @@ def phase_iqn_path(dev, game: str = "pong", head_matmul_dtype=None):
   `head_matmul_dtype=torch.bfloat16` (IQN_BF16_HEAD, pong) the network is
   built with the head's bf16-operand mode, as the reference's
   tools/iqn_bf16_tpu.py builds it: K4a, K4b and K4c launch in their bf16
-  mode (the `*_bf16` entries) and their f32 entries not at all."""
+  mode (the `*_bf16` entries, with one staging pass for K4b and K4c) and
+  their f32 entries not at all."""
   import shutil
   from dqn_zoo_torch import kernels, nets
   from dqn_zoo_torch.engine.superstep import leaves
@@ -2301,6 +2352,8 @@ def phase_iqn_path(dev, game: str = "pong", head_matmul_dtype=None):
   want = {fwd_res: 1, bwd_w: 1, bwd_d: 1, "gather_windows": 1,
           "dqn_torso_fwd_residuals": 1, "pooled_frame_to_84": 1,
           fwd: 2, "dqn_torso_fwd": 2}
+  if bf16:  # one staging pass feeds both bf16 backward kernels
+    want["iqn_head_stage_bf16"] = 1
   want = {k: want.get(k, 0) for k in per_learning_superstep}
   if per_learning_superstep != want:
     fail(f"launches per iqn learning superstep {per_learning_superstep}, "
@@ -3112,13 +3165,16 @@ def main() -> int:
     k._func()
   print(f"BUILD {time.perf_counter() - t0:.2f} s "
         f"{json.dumps(built)}", flush=True)
-  # K4b's, K4c's and K2's blocks take dynamic shared memory, which ptxas
-  # does not count: their sources report it.
+  # K4b's and K4c's (both modes) and K2's blocks take dynamic shared
+  # memory, which ptxas does not count: their sources report it.
   from dqn_zoo_torch.prep import cuda_prep
   smem = kernels.load("iqn_head_bwd.cu").dz_iqn_head_bwd_smem
+  smem_bf16 = kernels.load("iqn_head_bwd_bf16.cu").dz_iqn_head_bwd_bf16_smem
   plan = cuda_prep.band_plan()
   dynamic = {"iqn_head_bwd_w_kernel": smem(0),
              "iqn_head_bwd_d_kernel": smem(1),
+             "bwd_w_bf16_kernel": smem_bf16(0),
+             "bwd_d_bf16_kernel": smem_bf16(1),
              "pooled_frame_to_84_kernel": kernels.load(
                  "pooled_frame_to_84.cu").dz_pooled_frame_to_84_smem(
                      plan.max_rows)}

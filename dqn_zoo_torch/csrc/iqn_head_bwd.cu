@@ -133,14 +133,9 @@
 // a (rows, D) byte mask so that a check can hold the arithmetic apart from
 // those flips.
 //
-// bf16 mode (kBf16, the reference's `_bwd_w_call` and `_bwd_d_call` with
-// mm = bfloat16): the operands of K4b's cos @ we and hi^T @ dh and of K4c's
-// cos @ we, dh @ wh^T, cos^T @ dte and dte @ we^T are rounded to bf16 (to
-// nearest even) where they are split in f32 mode, and each tensor-core
-// product takes one TF32 pass in place of three (exact products, f32 sums:
-// tf32_mma.cuh); K4c's dcos products on the CUDA cores read dte and we
-// rounded. dbh, dbe and ds_emb = sum of dhi * te stay f32, and so do the
-// s_emb factors. The small parts are neither stored nor read; the folds stay.
+// The bf16 mode of both (the reference's `_bwd_w_call` and `_bwd_d_call`
+// with mm = bfloat16) is a pair of kernels of its own, on bf16 tensor cores:
+// csrc/iqn_head_bwd_bf16.cu.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -208,28 +203,20 @@ __device__ __forceinline__ int group_begin(int g, int groups, int nb) {
 }
 
 // Splits four values and stores them as one lane's fragment: the big parts
-// at `big`, the small parts kFrag floats on (bf16 mode: the rounded values
-// at `big`, no small parts).
-template <bool kBf16>
+// at `big`, the small parts kFrag floats on.
 __device__ __forceinline__ void store_frag(float* big, float a0, float a1,
                                            float a2, float a3) {
   uint4 b, s;
-  split_op<kBf16>(a0, b.x, s.x);
-  split_op<kBf16>(a1, b.y, s.y);
-  split_op<kBf16>(a2, b.z, s.z);
-  split_op<kBf16>(a3, b.w, s.w);
+  split_tf32(a0, b.x, s.x);
+  split_tf32(a1, b.y, s.y);
+  split_tf32(a2, b.z, s.z);
+  split_tf32(a3, b.w, s.w);
   *reinterpret_cast<uint4*>(big) = b;
-  if constexpr (!kBf16) *reinterpret_cast<uint4*>(big + kFrag) = s;
-}
-
-__device__ __forceinline__ float4 round_bf16(float4 v) {
-  return make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z),
-                     round_bf16(v.w));
+  *reinterpret_cast<uint4*>(big + kFrag) = s;
 }
 
 // ---------------------------------------------------------------- K4b ------
 
-template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
 iqn_head_bwd_w_kernel(const float* __restrict__ cosx,
                       const float* __restrict__ semb,
@@ -306,8 +293,8 @@ iqn_head_bwd_w_kernel(const float* __restrict__ cosx,
     const int ln = e & 31, kl = (e >> 5) & 7, i = e >> 8;
     const int l0 = 16 * (kl >> 1) + 4 * (ln & 3) + 2 * (kl & 1);
     const float* w0 = we + (long long)l0 * d + d0 + 16 * i + (ln >> 2);
-    store_frag<kBf16>(wef_s + (i * 8 + kl) * 2 * kFrag + 4 * ln, __ldg(w0),
-                      __ldg(w0 + 8), __ldg(w0 + d), __ldg(w0 + d + 8));
+    store_frag(wef_s + (i * 8 + kl) * 2 * kFrag + 4 * ln, __ldg(w0),
+               __ldg(w0 + 8), __ldg(w0 + d), __ldg(w0 + d + 8));
   }
   // be at this lane's te_pre^T rows: columns 16 i + g and + 8.
   float bias[2][2];
@@ -363,10 +350,10 @@ iqn_head_bwd_w_kernel(const float* __restrict__ cosx,
         const float4 x = *reinterpret_cast<const float4*>(
             cr + 4 * ((4 * p + t) ^ ((g & 1) << 2)));
         uint32_t bb[2][2], bs[2][2];
-        split_op<kBf16>(x.x, bb[0][0], bs[0][0]);
-        split_op<kBf16>(x.y, bb[0][1], bs[0][1]);
-        split_op<kBf16>(x.z, bb[1][0], bs[1][0]);
-        split_op<kBf16>(x.w, bb[1][1], bs[1][1]);
+        split_tf32(x.x, bb[0][0], bs[0][0]);
+        split_tf32(x.y, bb[0][1], bs[0][1]);
+        split_tf32(x.z, bb[1][0], bs[1][0]);
+        split_tf32(x.w, bb[1][1], bs[1][1]);
 #pragma unroll
         for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -374,8 +361,8 @@ iqn_head_bwd_w_kernel(const float* __restrict__ cosx,
             const int f = (i * 8 + 2 * p + h) * 2;
             uint32_t ab[4], as[4];
             load_a(ab, wef_s, f, lane);
-            if constexpr (!kBf16) load_a(as, wef_s, f + 1, lane);
-            mma_op<kBf16>(tp[i][h], ab, as, bb[h], bs[h]);
+            load_a(as, wef_s, f + 1, lane);
+            mma_3xtf32(tp[i][h], ab, as, bb[h], bs[h]);
           }
       }
 #pragma unroll
@@ -385,8 +372,8 @@ iqn_head_bwd_w_kernel(const float* __restrict__ cosx,
         for (int k = 0; k < 4; ++k)
           e[k] = fmaxf(tp[i][0][k] + tp[i][1][k] + bias[i][k >> 1], 0.f) *
                  se[i][k];
-        store_frag<kBf16>(hi_c + (warp * 2 + i) * 2 * kFrag + 4 * lane, e[0],
-                          e[2], e[1], e[3]);
+        store_frag(hi_c + (warp * 2 + i) * 2 * kFrag + 4 * lane, e[0], e[2],
+                   e[1], e[3]);
       }
     }
     __syncthreads();  // the step's hi is in; everyone has left step c - 1
@@ -410,7 +397,7 @@ iqn_head_bwd_w_kernel(const float* __restrict__ cosx,
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           load_a(ab[i], hi_c, (j * 2 + i) * 2, lane);
-          if constexpr (!kBf16) load_a(as[i], hi_c, (j * 2 + i) * 2 + 1, lane);
+          load_a(as[i], hi_c, (j * 2 + i) * 2 + 1, lane);
         }
         const float* r = rb + 8 * u * kWCols;
         const float4 x0 = *reinterpret_cast<const float4*>(r + off0);
@@ -422,12 +409,11 @@ iqn_head_bwd_w_kernel(const float* __restrict__ cosx,
 #pragma unroll
         for (int n = 0; n < 8; ++n) {
           uint32_t bb[2], bs[2];
-          split_op<kBf16>(xv[n], bb[0], bs[0]);
-          split_op<kBf16>(yv[n], bb[1], bs[1]);
+          split_tf32(xv[n], bb[0], bs[0]);
+          split_tf32(yv[n], bb[1], bs[1]);
 #pragma unroll
           for (int i = 0; i < 2; ++i)
-            mma_op<kBf16>(kFold ? pend[i][n] : acc[i][n], ab[i], as[i], bb,
-                          bs);
+            mma_3xtf32(kFold ? pend[i][n] : acc[i][n], ab[i], as[i], bb, bs);
         }
         if (kFold && (j + 1) % kFold == 0)
 #pragma unroll
@@ -486,7 +472,6 @@ iqn_head_bwd_w_kernel(const float* __restrict__ cosx,
 
 // ---------------------------------------------------------------- K4c ------
 
-template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
 iqn_head_bwd_d_kernel(const float* __restrict__ cosx,
                       const float* __restrict__ semb,
@@ -599,15 +584,15 @@ iqn_head_bwd_d_kernel(const float* __restrict__ cosx,
 #pragma unroll
       for (int ks = 0; ks < kL / 8; ++ks) {
         uint32_t ab[4], as[4];
-        split_op<kBf16>(ap[8 * ks], ab[0], as[0]);
-        split_op<kBf16>(ap[8 * kCosS + 8 * ks], ab[1], as[1]);
-        split_op<kBf16>(ap[8 * ks + 4], ab[2], as[2]);
-        split_op<kBf16>(ap[8 * kCosS + 8 * ks + 4], ab[3], as[3]);
+        split_tf32(ap[8 * ks], ab[0], as[0]);
+        split_tf32(ap[8 * kCosS + 8 * ks], ab[1], as[1]);
+        split_tf32(ap[8 * ks + 4], ab[2], as[2]);
+        split_tf32(ap[8 * kCosS + 8 * ks + 4], ab[3], as[3]);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           uint32_t bb[2], bs[2];
-          load_b<kBf16>(bb, bs, bp + 8 * ks * kWeS + 8 * j, kWeS);
-          mma_op<kBf16>(tp[j], ab, as, bb, bs);
+          load_b<false>(bb, bs, bp + 8 * ks * kWeS + 8 * j, kWeS);
+          mma_3xtf32(tp[j], ab, as, bb, bs);
         }
       }
 #pragma unroll
@@ -657,25 +642,25 @@ iqn_head_bwd_d_kernel(const float* __restrict__ cosx,
         const float4 x0 = *reinterpret_cast<const float4*>(ab_ + sw);
         const float4 x1 = *reinterpret_cast<const float4*>(ab_ + 8 * kKC + sw);
         uint32_t a0b[4], a0s[4], a1b[4], a1s[4];
-        split_op<kBf16>(x0.x, a0b[0], a0s[0]);
-        split_op<kBf16>(x1.x, a0b[1], a0s[1]);
-        split_op<kBf16>(x0.y, a0b[2], a0s[2]);
-        split_op<kBf16>(x1.y, a0b[3], a0s[3]);
-        split_op<kBf16>(x0.z, a1b[0], a1s[0]);
-        split_op<kBf16>(x1.z, a1b[1], a1s[1]);
-        split_op<kBf16>(x0.w, a1b[2], a1s[2]);
-        split_op<kBf16>(x1.w, a1b[3], a1s[3]);
+        split_tf32(x0.x, a0b[0], a0s[0]);
+        split_tf32(x1.x, a0b[1], a0s[1]);
+        split_tf32(x0.y, a0b[2], a0s[2]);
+        split_tf32(x1.y, a0b[3], a0s[3]);
+        split_tf32(x0.z, a1b[0], a1s[0]);
+        split_tf32(x1.z, a1b[1], a1s[1]);
+        split_tf32(x0.w, a1b[2], a1s[2]);
+        split_tf32(x1.w, a1b[3], a1s[3]);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const float4 w =
               *reinterpret_cast<const float4*>(wb + 8 * j * kH + sw);
           uint32_t b0b[2], b0s[2], b1b[2], b1s[2];
-          split_op<kBf16>(w.x, b0b[0], b0s[0]);
-          split_op<kBf16>(w.y, b0b[1], b0s[1]);
-          split_op<kBf16>(w.z, b1b[0], b1s[0]);
-          split_op<kBf16>(w.w, b1b[1], b1s[1]);
-          mma_op<kBf16>(acc[j], a0b, a0s, b0b, b0s);
-          mma_op<kBf16>(acc_odd[j], a1b, a1s, b1b, b1s);
+          split_tf32(w.x, b0b[0], b0s[0]);
+          split_tf32(w.y, b0b[1], b0s[1]);
+          split_tf32(w.z, b1b[0], b1s[0]);
+          split_tf32(w.w, b1b[1], b1s[1]);
+          mma_3xtf32(acc[j], a0b, a0s, b0b, b0s);
+          mma_3xtf32(acc_odd[j], a1b, a1s, b1b, b1s);
         }
       }
     }
@@ -705,9 +690,7 @@ iqn_head_bwd_d_kernel(const float* __restrict__ cosx,
                                        p1 ? x1 * sv[h][j].y : 0.f);
         dbe_acc[j][0] += dte.x;
         dbe_acc[j][1] += dte.y;
-        // dte as dwe's and dcos's products read it (rounded in bf16 mode).
-        *reinterpret_cast<float2*>(dte_s + r * kDteS + 8 * j + 2 * t) =
-            kBf16 ? make_float2(round_bf16(dte.x), round_bf16(dte.y)) : dte;
+        *reinterpret_cast<float2*>(dte_s + r * kDteS + 8 * j + 2 * t) = dte;
         const int i = g + 8 * h;
         *reinterpret_cast<float2*>(g_w + i * kKC +
                                    ((8 * j + 2 * t) ^ ((i & 3) << 3))) =
@@ -731,17 +714,17 @@ iqn_head_bwd_d_kernel(const float* __restrict__ cosx,
       for (int ks = 0; ks < kRD / 8; ++ks) {
         const float* a = ap + 8 * ks * kCosS;
         uint32_t ab[4], as[4];
-        split_op<kBf16>(a[0], ab[0], as[0]);
-        split_op<kBf16>(a[8], ab[1], as[1]);
-        split_op<kBf16>(a[kCosS], ab[2], as[2]);
-        split_op<kBf16>(a[kCosS + 8], ab[3], as[3]);
+        split_tf32(a[0], ab[0], as[0]);
+        split_tf32(a[8], ab[1], as[1]);
+        split_tf32(a[kCosS], ab[2], as[2]);
+        split_tf32(a[kCosS + 8], ab[3], as[3]);
 #pragma unroll
         for (int jj = 0; jj < 2; ++jj) {
           const float* b = bp + 8 * ks * kDteS + 8 * jj;
           uint32_t bb[2], bs[2];
-          split_op<kBf16>(b[0], bb[0], bs[0]);
-          split_op<kBf16>(b[kDteS], bb[1], bs[1]);
-          mma_op_rn<kBf16>(dwe_acc[jj], ab, as, bb, bs);
+          split_tf32(b[0], bb[0], bs[0]);
+          split_tf32(b[kDteS], bb[1], bs[1]);
+          mma_3xtf32_rn(dwe_acc[jj], ab, as, bb, bs);
         }
       }
     }
@@ -785,9 +768,8 @@ iqn_head_bwd_d_kernel(const float* __restrict__ cosx,
               *reinterpret_cast<const float4*>(dte_s + r * kDteS + 4 * k4);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            float4 wv = *reinterpret_cast<const float4*>(
+            const float4 wv = *reinterpret_cast<const float4*>(
                 we_s + (l4 + 16 * e) * kWeS + 4 * k4);
-            if constexpr (kBf16) wv = round_bf16(wv);
             p[e] = dot4(dv, wv, p[e]);
           }
         }
@@ -873,42 +855,36 @@ cudaError_t allow_smem(Kernel kernel, int bytes, bool (&done)[kMaxDevices]) {
   return cudaSuccess;
 }
 
-template <bool kBf16>
 int bwd_w(const void* cos, const void* semb, const void* dh, const void* we,
           const void* be, void* out, void* part, int b, int s, int d,
           int groups, void* cuda_stream) {
   cudaStream_t st = (cudaStream_t)cuda_stream;
   static bool smem_set[kMaxDevices];
-  cudaError_t err =
-      allow_smem(iqn_head_bwd_w_kernel<kBf16>, kSmemW, smem_set);
+  cudaError_t err = allow_smem(iqn_head_bwd_w_kernel, kSmemW, smem_set);
   if (err != cudaSuccess) return (int)err;
-  iqn_head_bwd_w_kernel<kBf16>
-      <<<dim3(d / kDC, groups), kThreads, kSmemW, st>>>(
-          (const float*)cos, (const float*)semb, (const float*)dh,
-          (const float*)we, (const float*)be,
-          (float*)(groups > 1 ? part : out), s, b, d);
+  iqn_head_bwd_w_kernel<<<dim3(d / kDC, groups), kThreads, kSmemW, st>>>(
+      (const float*)cos, (const float*)semb, (const float*)dh,
+      (const float*)we, (const float*)be, (float*)(groups > 1 ? part : out),
+      s, b, d);
   err = cudaGetLastError();
   if (err == cudaSuccess && groups > 1)
     err = sum_partials(part, out, (long long)d * kH + kH, groups, st);
   return (int)err;
 }
 
-template <bool kBf16>
 int bwd_d(const void* cos, const void* semb, const void* dh, const void* we,
           const void* be, const void* wh, void* out, void* part, void* dsemb,
           void* dcos, void* dcos_part, void* te_mask, int b, int s, int d,
           int groups, void* cuda_stream) {
   cudaStream_t st = (cudaStream_t)cuda_stream;
   static bool smem_set[kMaxDevices];
-  cudaError_t err =
-      allow_smem(iqn_head_bwd_d_kernel<kBf16>, kSmemD, smem_set);
+  cudaError_t err = allow_smem(iqn_head_bwd_d_kernel, kSmemD, smem_set);
   if (err != cudaSuccess) return (int)err;
-  iqn_head_bwd_d_kernel<kBf16>
-      <<<dim3(d / kDC, groups), kThreads, kSmemD, st>>>(
-          (const float*)cos, (const float*)semb, (const float*)dh,
-          (const float*)we, (const float*)be, (const float*)wh,
-          (float*)(groups > 1 ? part : out), (float*)dsemb,
-          dcos ? (float*)dcos_part : nullptr, (uint8_t*)te_mask, s, b, d);
+  iqn_head_bwd_d_kernel<<<dim3(d / kDC, groups), kThreads, kSmemD, st>>>(
+      (const float*)cos, (const float*)semb, (const float*)dh,
+      (const float*)we, (const float*)be, (const float*)wh,
+      (float*)(groups > 1 ? part : out), (float*)dsemb,
+      dcos ? (float*)dcos_part : nullptr, (uint8_t*)te_mask, s, b, d);
   err = cudaGetLastError();
   if (err == cudaSuccess && groups > 1)
     err = sum_partials(part, out, (long long)kL * d + d, groups, st);
@@ -929,8 +905,8 @@ extern "C" int dz_iqn_head_bwd_w(const void* cos, const void* semb,
                                  const void* be, void* out, void* part,
                                  int b, int s, int d, int groups,
                                  void* cuda_stream) {
-  return bwd_w<false>(cos, semb, dh, we, be, out, part, b, s, d, groups,
-                      cuda_stream);
+  return bwd_w(cos, semb, dh, we, be, out, part, b, s, d, groups,
+               cuda_stream);
 }
 
 // As above plus wh (d, 512) -> out, one run of 64 * d + d floats: dwe
@@ -944,29 +920,8 @@ extern "C" int dz_iqn_head_bwd_d(const void* cos, const void* semb,
                                  void* part, void* dsemb, void* dcos,
                                  void* dcos_part, void* te_mask, int b, int s,
                                  int d, int groups, void* cuda_stream) {
-  return bwd_d<false>(cos, semb, dh, we, be, wh, out, part, dsemb, dcos,
-                      dcos_part, te_mask, b, s, d, groups, cuda_stream);
-}
-
-// The two in bf16 mode: the products' operands rounded to bf16.
-extern "C" int dz_iqn_head_bwd_w_bf16(const void* cos, const void* semb,
-                                      const void* dh, const void* we,
-                                      const void* be, void* out, void* part,
-                                      int b, int s, int d, int groups,
-                                      void* cuda_stream) {
-  return bwd_w<true>(cos, semb, dh, we, be, out, part, b, s, d, groups,
-                     cuda_stream);
-}
-
-extern "C" int dz_iqn_head_bwd_d_bf16(const void* cos, const void* semb,
-                                      const void* dh, const void* we,
-                                      const void* be, const void* wh,
-                                      void* out, void* part, void* dsemb,
-                                      void* dcos, void* dcos_part,
-                                      void* te_mask, int b, int s, int d,
-                                      int groups, void* cuda_stream) {
-  return bwd_d<true>(cos, semb, dh, we, be, wh, out, part, dsemb, dcos,
-                     dcos_part, te_mask, b, s, d, groups, cuda_stream);
+  return bwd_d(cos, semb, dh, we, be, wh, out, part, dsemb, dcos, dcos_part,
+               te_mask, b, s, d, groups, cuda_stream);
 }
 
 // Bytes of dynamic shared memory a block of K4b (kernel 0) or K4c (1) takes,

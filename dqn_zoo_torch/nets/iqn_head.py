@@ -45,10 +45,16 @@ the products accumulate in f32; the stream broadcast, h as stored, ds_emb,
 dbe, dbh and the wo-layer gradients stay f32. The gradients are then the
 reference's custom VJP, not autograd through the casts: `_IqnHead` is taken
 on both devices, with the plain functions on the CPU and K4a, K4b and K4c
-in their bf16 mode (registered apart, `*_bf16`) on the card.
+in their bf16 mode (registered apart, `*_bf16`) on the card. K4a's bf16
+mode is its f32 source with the operands rounded in registers; K4b's and
+K4c's are kernels of their own (csrc/iqn_head_bwd_bf16.cu) on bf16 tensor
+cores, reading bf16 copies of dh, cos, we and wh that one staging pass
+(`iqn_head_stage_bf16`, which also sums dbh) writes for both.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -59,6 +65,13 @@ HIDDEN = 512  # hidden width (kH)
 D_MULTIPLE = 32  # the source walks D in chunks of 32 (kKC)
 ROWS_PER_BLOCK = 64  # rows of one forward block (kM)
 SMS = 132  # streaming multiprocessors of an H100 SXM
+# The bf16 backward kernels' tiles (csrc/iqn_head_bwd_bf16.cu): columns of
+# D a block owns (kBD, kCD), columns of H a K4b block owns (kBH), rows of a
+# chunk (kRC), and the most row groups the wrappers cut the rows into.
+BF16_TILE_D = 128
+BF16_TILE_H = 256
+BF16_CHUNK = 64
+BF16_MAX_GROUPS = 16
 
 _ARGS = [kernels.P] * 11 + [kernels.I] * 7 + [kernels.P]
 FWD = kernels.register(kernels.Kernel(
@@ -76,11 +89,16 @@ FWD_BF16 = kernels.register(kernels.Kernel(
     "iqn_head_fwd_bf16", "iqn_head.cu", "dz_iqn_head_bf16", _ARGS))
 FWD_RES_BF16 = kernels.register(kernels.Kernel(
     "iqn_head_fwd_residuals_bf16", "iqn_head.cu", "dz_iqn_head_bf16", _ARGS))
+# K4b and K4c in bf16 mode are kernels of their own (csrc/iqn_head_bwd_bf16.cu),
+# fed by a staging pass that rounds their operands to bf16 once.
+STAGE_BF16 = kernels.register(kernels.Kernel(
+    "iqn_head_stage_bf16", "iqn_head_bwd_bf16.cu", "dz_iqn_head_stage_bf16",
+    [kernels.P] * 10 + [kernels.I] * 2 + [kernels.P]))
 BWD_W_BF16 = kernels.register(kernels.Kernel(
-    "iqn_head_bwd_w_bf16", "iqn_head_bwd.cu", "dz_iqn_head_bwd_w_bf16",
+    "iqn_head_bwd_w_bf16", "iqn_head_bwd_bf16.cu", "dz_iqn_head_bwd_w_bf16",
     BWD_W.argtypes))
 BWD_D_BF16 = kernels.register(kernels.Kernel(
-    "iqn_head_bwd_d_bf16", "iqn_head_bwd.cu", "dz_iqn_head_bwd_d_bf16",
+    "iqn_head_bwd_d_bf16", "iqn_head_bwd_bf16.cu", "dz_iqn_head_bwd_d_bf16",
     BWD_D.argtypes))
 
 
@@ -303,68 +321,183 @@ def _ptr(t):
   return None if t is None else t.data_ptr()
 
 
-def iqn_head_bwd_w(we, be, cos_emb, s_emb, dh, mm=None):
-  """Launches K4b (in its bf16 mode for mm=bf16): (dwh (D, H), dbh (H))
-  from dh (B·S, H)."""
+def _fill_groups(units: int, tiles: int, chunks_of, part_chunks=0.0) -> int:
+  """Groups of consecutive units (64-row chunks or streams) the bf16
+  kernels' grids cut the rows into, beside `tiles` blocks each: of the
+  counts up to BF16_MAX_GROUPS (and `units`) that give the card's 132 SMs a
+  block each (where none does, of all), the one of least cost, in a
+  block's chunk times: waves x the chunks a group walks (`chunks_of(n)` for
+  a group of n units), plus `part_chunks` a group for writing its partial
+  sums and reading them back."""
+  counts = range(1, min(BF16_MAX_GROUPS, units) + 1)
+  fill = [g for g in counts if tiles * g >= SMS] or list(counts)
+  return min(fill, key=lambda g: (-(-tiles * g // SMS) * chunks_of(
+      -(-units // g)) + part_chunks * g, g))
+
+
+def bf16_tiles_d(d: int) -> int:
+  """Tiles of D (128 columns, the last ragged) of the bf16 kernels."""
+  return -(-d // BF16_TILE_D)
+
+
+def bf16_groups_w(b: int, s: int, d: int = 3136) -> int:
+  """Row groups of K4b in bf16 mode: whole 64-row chunks (5 at the learn
+  shape: 250 blocks of 128 x 256, two waves). A group's partial dwh, 6.4 MB
+  written and read back (~4 us at 3.35 TB/s), costs ~4 chunk times (a
+  block's chunk is 5.2 MFLOP, ~1.2 us at 600 TFLOP/s over 132 SMs)."""
+  return _fill_groups(-(-b * s // BF16_CHUNK),
+                      bf16_tiles_d(d) * (HIDDEN // BF16_TILE_H), lambda n: n,
+                      part_chunks=4.0 * d / 3136)
+
+
+def bf16_groups_d(b: int, s: int, d: int = 3136) -> int:
+  """Row groups of K4c in bf16 mode: whole streams, as ds_emb needs (10 at
+  the learn shape: 250 blocks, two waves; its partials, 0.8 MB a group,
+  cost next to nothing)."""
+  return _fill_groups(b, bf16_tiles_d(d), lambda n: -(-n * s // BF16_CHUNK))
+
+
+class Bf16Operands(NamedTuple):
+  """What the staging pass hands K4b and K4c in bf16 mode: dh (B·S, H),
+  cos (B·S, latent), we transposed (D, latent) and wh (D, H) or None,
+  rounded to bf16, and dbh (H) = Σ_rows dh in f32."""
+  dh: torch.Tensor
+  cos: torch.Tensor
+  we_t: torch.Tensor
+  wh: Optional[torch.Tensor]
+  dbh: torch.Tensor
+
+
+def iqn_head_stage_bf16_plain(we, cos_emb, dh, wh=None) -> Bf16Operands:
+  """The staging pass's plain version."""
+  bf = torch.bfloat16
+  return Bf16Operands(dh.to(bf), cos_emb.reshape(-1, LATENT).to(bf),
+                      we.t().contiguous().to(bf),
+                      None if wh is None else wh.to(bf), dh.sum(dim=0))
+
+
+def iqn_head_stage_bf16(we, cos_emb, dh, wh=None) -> Bf16Operands:
+  """Launches the staging pass of the bf16 backward kernels: the bf16
+  copies of dh, cos, we (transposed) and wh (when given) and dbh, through
+  a scratch buffer of (ceil(B·S / 128), H) floats. CPU tensors take the
+  plain version."""
+  if cos_emb.device.type == "cpu":
+    return iqn_head_stage_bf16_plain(we, cos_emb, dh, wh)
+  b, s, d = _dims(cos_emb, we, 1)  # we (latent, D) gives D as s_emb would
+  shapes = {"we": (LATENT, d), "cos_emb": (b, s, LATENT),
+            "dh": (b * s, HIDDEN)}
+  tensors = {"we": we, "cos_emb": cos_emb, "dh": dh}
+  if wh is not None:
+    shapes["wh"], tensors["wh"] = (d, HIDDEN), wh
+  _check_tensors(tensors, shapes)
+  rows, dev, bf = b * s, cos_emb.device, torch.bfloat16
+  new = lambda *shape: torch.empty(shape, dtype=bf, device=dev)
+  out = Bf16Operands(new(rows, HIDDEN), new(rows, LATENT), new(d, LATENT),
+                     None if wh is None else new(d, HIDDEN),
+                     torch.empty((HIDDEN,), dtype=torch.float32, device=dev))
+  part = torch.empty((-(-rows // 128), HIDDEN), dtype=torch.float32,
+                     device=dev)
+  STAGE_BF16.launch(dh.data_ptr(), cos_emb.data_ptr(), we.data_ptr(),
+                    _ptr(wh), out.dh.data_ptr(), out.cos.data_ptr(),
+                    out.we_t.data_ptr(), _ptr(out.wh), part.data_ptr(),
+                    out.dbh.data_ptr(), rows, d, kernels.stream_ptr(dev))
+  return out
+
+
+def _staged(we, cos_emb, dh, wh, staged):
+  """`staged` (a Bf16Operands of this call's tensors, as the backward hands
+  both kernels one) or a fresh staging of them."""
+  if staged is None:
+    return iqn_head_stage_bf16(we, cos_emb, dh, wh)
+  if wh is not None and staged.wh is None:
+    raise ValueError("iqn_head: the staged operands lack wh.")
+  return staged
+
+
+def iqn_head_bwd_w(we, be, cos_emb, s_emb, dh, mm=None, staged=None):
+  """Launches K4b: (dwh (D, H), dbh (H)) from dh (B·S, H). For mm=bf16 the
+  bf16 kernel on `staged` (iqn_head_stage_bf16's result for these tensors;
+  staged here when None), which also gives dbh."""
   b, s, d = _check_bwd(we, be, None, cos_emb, s_emb, dh)
   dev = cos_emb.device
+  if matmul_dtype(mm) is not None:
+    st = _staged(we, cos_emb, dh, None, staged)
+    groups = bf16_groups_w(b, s, d)
+    dwh, part = _sums_and_partials(d * HIDDEN, groups, dev)
+    BWD_W_BF16.launch(st.cos.data_ptr(), s_emb.data_ptr(), st.dh.data_ptr(),
+                      st.we_t.data_ptr(), be.data_ptr(), dwh.data_ptr(),
+                      _ptr(part), b, s, d, groups, kernels.stream_ptr(dev))
+    return dwh.view(d, HIDDEN), st.dbh
   groups = row_groups(b, s)
   out, part = _sums_and_partials(d * HIDDEN + HIDDEN, groups, dev)
-  kernel = BWD_W if matmul_dtype(mm) is None else BWD_W_BF16
-  kernel.launch(cos_emb.data_ptr(), s_emb.data_ptr(), dh.data_ptr(),
+  BWD_W.launch(cos_emb.data_ptr(), s_emb.data_ptr(), dh.data_ptr(),
                we.data_ptr(), be.data_ptr(), out.data_ptr(), _ptr(part),
                b, s, d, groups, kernels.stream_ptr(dev))
   return out[:d * HIDDEN].view(d, HIDDEN), out[d * HIDDEN:]
 
 
 def iqn_head_bwd_d(we, be, wh, cos_emb, s_emb, dh, need_dcos: bool = True,
-                   return_te_mask: bool = False, mm=None):
-  """Launches K4c (in its bf16 mode for mm=bf16): (dwe (latent, D), dbe
-  (D), ds_emb (B, D), dcos (B, S, latent) or None) from dh (B·S, H). dcos
-  costs a scratch buffer of (D / 32, B·S, latent) floats, summed over D by
-  a small second kernel of the same launch. With `return_te_mask` a fifth
-  result is the kernel's own te_pre > 0 as (B·S, D) uint8."""
+                   return_te_mask: bool = False, mm=None, staged=None):
+  """Launches K4c: (dwe (latent, D), dbe (D), ds_emb (B, D), dcos (B, S,
+  latent) or None) from dh (B·S, H). dcos costs a scratch buffer of (D / 32,
+  B·S, latent) floats (bf16 mode: (ceil(D / 128), B·S, latent)), summed
+  over D by a small second kernel of the same launch. With `return_te_mask`
+  a fifth result is the kernel's own te_pre > 0 as (B·S, D) uint8. For
+  mm=bf16 the bf16 kernel on `staged`, as K4b takes it."""
   b, s, d = _check_bwd(we, be, wh, cos_emb, s_emb, dh)
   dev = cos_emb.device
   new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
-  groups = row_groups(b, s)
+  bf16 = matmul_dtype(mm) is not None
+  groups = bf16_groups_d(b, s, d) if bf16 else row_groups(b, s)
+  tiles = bf16_tiles_d(d) if bf16 else d // D_MULTIPLE
   out, part = _sums_and_partials(LATENT * d + d, groups, dev)
   ds_emb = new(b, d)
   dcos = dcos_part = mask = None
   if need_dcos:
-    dcos, dcos_part = new(b, s, LATENT), new(d // D_MULTIPLE, b * s, LATENT)
+    dcos, dcos_part = new(b, s, LATENT), new(tiles, b * s, LATENT)
   if return_te_mask:
     mask = torch.empty((b * s, d), dtype=torch.uint8, device=dev)
-  kernel = BWD_D if matmul_dtype(mm) is None else BWD_D_BF16
-  kernel.launch(cos_emb.data_ptr(), s_emb.data_ptr(), dh.data_ptr(),
-               we.data_ptr(), be.data_ptr(), wh.data_ptr(), out.data_ptr(),
-               _ptr(part), ds_emb.data_ptr(), _ptr(dcos), _ptr(dcos_part),
-               _ptr(mask), b, s, d, groups, kernels.stream_ptr(dev))
+  if bf16:
+    st = _staged(we, cos_emb, dh, wh, staged)
+    BWD_D_BF16.launch(st.cos.data_ptr(), s_emb.data_ptr(), st.dh.data_ptr(),
+                      st.we_t.data_ptr(), be.data_ptr(), st.wh.data_ptr(),
+                      out.data_ptr(), _ptr(part), ds_emb.data_ptr(),
+                      _ptr(dcos), _ptr(dcos_part), _ptr(mask), b, s, d,
+                      groups, kernels.stream_ptr(dev))
+  else:
+    BWD_D.launch(cos_emb.data_ptr(), s_emb.data_ptr(), dh.data_ptr(),
+                 we.data_ptr(), be.data_ptr(), wh.data_ptr(), out.data_ptr(),
+                 _ptr(part), ds_emb.data_ptr(), _ptr(dcos), _ptr(dcos_part),
+                 _ptr(mask), b, s, d, groups, kernels.stream_ptr(dev))
   res = (out[:LATENT * d].view(LATENT, d), out[LATENT * d:], ds_emb, dcos)
   return res + (mask,) if return_te_mask else res
 
 
 def iqn_head_backward(we, be, wh, wo, cos_emb, s_emb, h, dq, bwd_w, bwd_d,
-                      need_dcos: bool = True, mm=None):
+                      need_dcos: bool = True, mm=None, stage=None):
   """The reference's `_iqn_head_bwd`: gradients of the eight arguments (in
   their order) from dq (B, S, A) and the saved h. The wo-layer gradients are
   plain f32 ops; `bwd_w` and `bwd_d` are the two kernels' wrappers or their
-  plain versions, given `mm`."""
+  plain versions, given `mm`. `stage`, when given (the bf16 kernels'
+  `iqn_head_stage_bf16`), stages dh once for both, which then take it as
+  `staged`."""
   b, s, _ = cos_emb.shape
   dq2 = dq.reshape(b * s, -1)
   dwo = h.t() @ dq2
   dbo = dq2.sum(dim=0)
   dh = (dq2 @ wo.t()) * (h > 0)
-  dwh, dbh = bwd_w(we, be, cos_emb, s_emb, dh, mm=mm)
+  kw = {} if stage is None else dict(staged=stage(we, cos_emb, dh, wh))
+  dwh, dbh = bwd_w(we, be, cos_emb, s_emb, dh, mm=mm, **kw)
   dwe, dbe, ds_emb, dcos = bwd_d(we, be, wh, cos_emb, s_emb, dh,
-                                 need_dcos=need_dcos, mm=mm)
+                                 need_dcos=need_dcos, mm=mm, **kw)
   return dwe, dbe, dwh, dbh, dwo, dbo, dcos, ds_emb
 
 
 class _IqnHead(torch.autograd.Function):
   """The reference's custom VJP. On the card: K4a with residuals forward;
-  backward by the wo-layer's plain ops, then K4b and K4c. On the CPU (taken
-  for mm=bf16 only): the plain versions of the same steps."""
+  backward by the wo-layer's plain ops, then K4b and K4c (in bf16 mode
+  after one staging pass). On the CPU (taken for mm=bf16 only): the plain
+  versions of the same steps."""
 
   @staticmethod
   def forward(ctx, we, be, wh, bh, wo, bo, cos_emb, s_emb, mm):
@@ -379,13 +512,16 @@ class _IqnHead(torch.autograd.Function):
 
   @staticmethod
   def backward(ctx, dq):
+    stage = None
     if dq.device.type == "cpu":
       bwd_w, bwd_d = iqn_head_bwd_w_plain, iqn_head_bwd_d_plain
     else:
       bwd_w, bwd_d = iqn_head_bwd_w, iqn_head_bwd_d
+      if ctx.mm is not None:
+        stage = iqn_head_stage_bf16
     grads = iqn_head_backward(*ctx.saved_tensors, dq.contiguous(), bwd_w,
                               bwd_d, need_dcos=ctx.needs_input_grad[6],
-                              mm=ctx.mm)
+                              mm=ctx.mm, stage=stage)
     return grads + (None,)
 
 
@@ -443,3 +579,12 @@ def bound_counts_bwd_d(b: int, s: int, need_dcos: bool, d: int = 3136):
     floats += rows * LATENT
     products += LATENT * d
   return 4 * floats, 2 * rows * products
+
+
+def bound_counts_stage_bf16(b: int, s: int, d: int = 3136):
+  """(bytes, flops) the staging pass must move and do as the backward runs
+  it: dh, cos, we and wh read once in f32 and written once in bf16, dbh
+  written; one add an element of dh."""
+  rows = b * s
+  elems = rows * HIDDEN + rows * LATENT + LATENT * d + d * HIDDEN
+  return 6 * elems + 4 * HIDDEN, rows * HIDDEN

@@ -486,16 +486,21 @@ def test_k4a_bf16_matches_plain(dev, b, s, residuals):
     assert _rel(got[0], q_from_h) <= 1e-5
 
 
-def test_k4b_k4c_bf16_match_plain(dev):
-  """K4b and K4c in bf16 mode at the learn shape (B = 1024, S = 64), K4c
-  with dcos and against the plain version with its own te_pre > 0 bits;
-  each launch repeated bit for bit."""
-  b, s = 1024, 64
+# (1024, 64): the learn shape (5 row groups of K4b, 10 of K4c); (128, 64):
+# the same group counts over 8,192 rows; (3, 24): one and two groups, the
+# last D tile ragged in both and streams that straddle the 64-row chunks.
+@pytest.mark.parametrize("b,s", [(1024, 64), (128, 64), (3, 24)],
+                         ids=["learn", "b128", "small"])
+def test_k4b_k4c_bf16_match_plain(dev, b, s):
+  """K4b and K4c in bf16 mode (their own kernels on staged bf16 operands),
+  K4c with dcos and against the plain version with its own te_pre > 0
+  bits; each launch repeated bit for bit."""
   args = _head_inputs(dev, b, s, 6, 24)
   we, be, wh, _, _, _, cos_emb, s_emb = args
   dh = _head_dh(dev, args, 25)
-  before = [k.launches for k in (iqn_head.BWD_W_BF16, iqn_head.BWD_D_BF16,
-                                 iqn_head.BWD_W, iqn_head.BWD_D)]
+  counters = (iqn_head.BWD_W_BF16, iqn_head.BWD_D_BF16,
+              iqn_head.STAGE_BF16, iqn_head.BWD_W, iqn_head.BWD_D)
+  before = [k.launches for k in counters]
   w_args = (we, be, cos_emb, s_emb, dh)
   got_w = iqn_head.iqn_head_bwd_w(*w_args, mm=BF16)
   again_w = iqn_head.iqn_head_bwd_w(*w_args, mm=BF16)
@@ -504,20 +509,55 @@ def test_k4b_k4c_bf16_match_plain(dev):
                                          mm=BF16)
   again_d = iqn_head.iqn_head_bwd_d(*d_args, return_te_mask=True, mm=BF16)
   torch.cuda.synchronize()
-  assert [k.launches for k in (iqn_head.BWD_W_BF16, iqn_head.BWD_D_BF16,
-                               iqn_head.BWD_W, iqn_head.BWD_D)] == \
-      [before[0] + 2, before[1] + 2] + before[2:]
+  # Each call without staged operands stages its own: 4 staging passes.
+  assert [k.launches for k in counters] == \
+      [before[0] + 2, before[1] + 2, before[2] + 4] + before[3:]
   assert all(torch.equal(u, v) for u, v in zip(got_w, again_w))
   assert all(torch.equal(u, v) for u, v in zip((*got_d, mask), again_d))
   want_w = iqn_head.iqn_head_bwd_w_plain(*w_args, mm=BF16)
   f32_w = iqn_head.iqn_head_bwd_w_plain(*w_args)
   for g, w, f in zip(got_w, want_w, f32_w):
+    assert tuple(g.shape) == tuple(w.shape)
     assert _rel(g, w) <= 1e-4
   assert _rel(got_w[0], want_w[0]) < 0.1 * _rel(f32_w[0], want_w[0])
   want_d = iqn_head.iqn_head_bwd_d_plain(*d_args, te_mask=mask, mm=BF16)
   for g, w in zip(got_d, want_d):
     assert tuple(g.shape) == tuple(w.shape)
     assert _rel(g, w) <= 1e-4
+
+
+@pytest.mark.parametrize("b,s", [(1024, 64), (3, 24)], ids=["learn", "small"])
+def test_bf16_staging_matches_plain(dev, b, s):
+  """The staging pass's bf16 copies equal the plain version's bit for bit,
+  also with ties, ±0, subnormals, ±inf and the largest float planted in
+  dh; dbh, summed in another order, within rtol 1e-5 (atol 1e-6 x
+  max|dbh|) on dh as the backward makes it; one launch a call, and the
+  same bits on a repeat."""
+  args = _head_inputs(dev, b, s, 6, 28)
+  we, _, wh, _, _, _, cos_emb, _ = args
+  dh = _head_dh(dev, args, 29)
+  before = iqn_head.STAGE_BF16.launches
+  got = iqn_head.iqn_head_stage_bf16(we, cos_emb, dh, wh)
+  again = iqn_head.iqn_head_stage_bf16(we, cos_emb, dh, wh)
+  want = iqn_head.iqn_head_stage_bf16_plain(we, cos_emb, dh, wh)
+  torch.testing.assert_close(got.dbh, want.dbh, rtol=1e-5,
+                             atol=1e-6 * float(want.dbh.abs().max()))
+  assert all(torch.equal(u.view(torch.uint8), v.view(torch.uint8))
+             for u, v in zip(got, again))
+  bits = np.array([0x3F808000, 0x3F818000, 0x80000000, 0x00000001,
+                   0x807FFFFF, 0x7F800000, 0xFF800000, 0x7F7FFFFF],
+                  dtype=np.uint32).view(np.float32)
+  dh[0, :8] = torch.from_numpy(bits).to(dev)
+  dh[-1, -8:] = -torch.from_numpy(bits).to(dev)
+  planted = iqn_head.iqn_head_stage_bf16(we, cos_emb, dh, wh)
+  torch.cuda.synchronize()
+  assert iqn_head.STAGE_BF16.launches == before + 3
+  for got, want in ((got, want), (planted, iqn_head.iqn_head_stage_bf16_plain(
+      we, cos_emb, dh, wh))):
+    for name in ("dh", "cos", "we_t", "wh"):
+      g, w = getattr(got, name), getattr(want, name)
+      assert g.dtype == torch.bfloat16 and tuple(g.shape) == tuple(w.shape)
+      assert torch.equal(g.view(torch.int16), w.view(torch.int16)), name
 
 
 def test_k4_bf16_function_matches_the_cpu(dev):
@@ -528,7 +568,7 @@ def test_k4_bf16_function_matches_the_cpu(dev):
   args = _head_inputs(dev, b, s, a, 26)
   dq = torch.randn((b, s, a), generator=_gen(27), device=dev)
   counters = (iqn_head.FWD_RES_BF16, iqn_head.BWD_W_BF16,
-              iqn_head.BWD_D_BF16)
+              iqn_head.BWD_D_BF16, iqn_head.STAGE_BF16)
   before = [k.launches for k in counters]
   outs = {}
   for d in (dev, "cpu"):
@@ -612,7 +652,8 @@ def test_every_kernel_builds(dev):
   kernels.build_all()
   sources = {k.source for k in kernels.REGISTRY.values()}
   assert sources == {"window_gather.cu", "pooled_frame_to_84.cu",
-                     "dqn_torso.cu", "iqn_head.cu", "iqn_head_bwd.cu"}
+                     "dqn_torso.cu", "iqn_head.cu", "iqn_head_bwd.cu",
+                     "iqn_head_bwd_bf16.cu"}
   assert sources == {p.name for p in kernels.CSRC.glob("*.cu")}
   for k in kernels.REGISTRY.values():
     assert k._func() is not None

@@ -658,3 +658,290 @@ def test_k2_band_split_equals_the_plain_version(band_rows):
   got = _k2_band_split(f1, f2, band_rows)
   assert torch.equal(got, tprep.pooled_frame_to_84_plain(f1, f2))
   assert torch.equal(got, cuda_prep.pooled_frame_to_84(f1, f2))
+
+
+# --- K4b and K4c in bf16 mode: their plan, read from their source -----------
+
+BF16_CU = pathlib.Path(iqn_head.__file__).parent.parent / \
+    "csrc/iqn_head_bwd_bf16.cu"
+# (B, S): the learn shape, the act shape, a small one and a ragged one (S
+# not a multiple of 64, so streams straddle the 64-row chunks).
+BF16_SHAPES = [(1024, 64), (128, 64), (4, 64), (3, 24)]
+
+
+def _bf16_consts():
+  """csrc/iqn_head_bwd_bf16.cu's `constexpr int` constants, evaluated in
+  their order (integer division as C's, all operands positive)."""
+  consts = {}
+  for name, expr in re.findall(r"constexpr int (\w+)\s*=\s*([^;]+);",
+                               BF16_CU.read_text()):
+    consts[name] = eval(" ".join(expr.split()).replace("/", "//"), {},
+                        dict(consts))
+  return consts
+
+
+def test_bf16_tiles_and_limits_are_the_sources():
+  c = _bf16_consts()
+  assert (c["kBD"], c["kCD"], c["kBH"], c["kRC"], c["kL"], c["kH"]) == (
+      iqn_head.BF16_TILE_D, iqn_head.BF16_TILE_D, iqn_head.BF16_TILE_H,
+      iqn_head.BF16_CHUNK, iqn_head.LATENT, iqn_head.HIDDEN)
+  assert c["kThreads"] == 256 and c["kKChunks"] * c["kKC"] == c["kH"]
+  # Shared memory a block: K4b 177 KB and K4c 227 KB (1 KB of each to
+  # align the tiles to the 1024 bytes wgmma's swizzle wants), within the
+  # H100's 232,448 bytes a block.
+  assert c["kSmemW"] == 181248 and c["kSmemD"] == 232448
+  # K4b's dh stage is 4 blocks of 64 columns x 64 rows of 128 bytes, the
+  # wgmma descriptors' 8-row atoms 1024 bytes apart and column blocks
+  # kRC * 128 apart.
+  assert c["kDhStageB"] == 4 * c["kRC"] * 128 and c["kDhStageB"] % 1024 == 0
+  assert c["kCosStageB"] % 1024 == 0 and c["kWeTB"] % 1024 == 0
+  assert max(c["kSmemW"], c["kSmemD"]) <= 232448
+  # Each ring stage holds whole 16-byte pieces in rows of a multiple of 128
+  # bytes (the XOR swizzle permutes the 8 pieces of each 128 bytes).
+  for row_bytes in (c["kDhRowB"], c["kCosRowB"], c["kWhRowB"],
+                    c["kRingRowB"], c["kDteRowB"]):
+    assert row_bytes % 128 == 0
+
+
+def _groups(units, groups):
+  """The kernels' group_begin: group g's units [g n / G, (g + 1) n / G)."""
+  return [(g * units // groups, (g + 1) * units // groups)
+          for g in range(groups)]
+
+
+@pytest.mark.parametrize("b,s", BF16_SHAPES)
+def test_bf16_grids_cover_rows_and_columns_once(b, s):
+  """K4b's groups of whole 64-row chunks and K4c's of whole streams cut the
+  rows into non-empty runs, each row in one; the D tiles of 128 columns
+  (the last ragged) and K4b's two H tiles cover every column once."""
+  rows, c = b * s, _bf16_consts()
+  chunks = -(-rows // c["kRC"])
+  gw, gd = iqn_head.bf16_groups_w(b, s, D), iqn_head.bf16_groups_d(b, s, D)
+  runs = _groups(chunks, gw)
+  assert all(hi > lo for lo, hi in runs)
+  covered = [r for lo, hi in runs
+             for r in range(lo * c["kRC"], min(hi * c["kRC"], rows))]
+  assert covered == list(range(rows))
+  streams = _groups(b, gd)
+  assert all(hi > lo for lo, hi in streams)
+  assert [st for lo, hi in streams for st in range(lo, hi)] == list(range(b))
+  tiles = iqn_head.bf16_tiles_d(D)
+  cols = [x * c["kBD"] + j for x in range(tiles) for j in range(c["kBD"])
+          if x * c["kBD"] + j < D]
+  assert cols == list(range(D)) and tiles * c["kBD"] - D < c["kBD"]
+  assert [y * c["kBH"] + j for y in range(c["kH"] // c["kBH"])
+          for j in range(c["kBH"])] == list(range(c["kH"]))
+
+
+def test_bf16_learn_grids_fill_the_card():
+  """At the learn shape both grids give every one of the 132 SMs a block and
+  lose little to the last wave: K4b 25 x 2 x 5 = 250 blocks, K4c 25 x 10 =
+  250, two waves each."""
+  b, s = 1024, 64
+  tiles = iqn_head.bf16_tiles_d(D)
+  w = tiles * 2 * iqn_head.bf16_groups_w(b, s, D)
+  d = tiles * iqn_head.bf16_groups_d(b, s, D)
+  assert (tiles, w, d) == (25, 250, 250)
+  # The last D tile is half a tile: 49.5 tiles' work in 25 tiles' blocks.
+  for blocks in (w, d):
+    waves = -(-blocks // iqn_head.SMS)
+    assert blocks >= iqn_head.SMS
+    assert blocks * 49.5 / 50 / (waves * iqn_head.SMS) > 0.9
+
+
+def _lane_tile(rows_per_warp_tile, cols_per_warp_tile):
+  """(row, column) of accumulator (i, j, e) of every lane (g, t) of a warp
+  whose tile is rows_per_warp_tile x cols_per_warp_tile in m16n8 tiles:
+  row 16 i + g + 8 (e >> 1), column 8 j + 2 t + (e & 1) (mma.sync's C
+  fragments, and wgmma's for the warp's 16 rows of its warpgroup)."""
+  g, t = np.arange(8)[:, None], np.arange(4)[None, :]
+  out = []
+  for i in range(rows_per_warp_tile // 16):
+    for j in range(cols_per_warp_tile // 8):
+      for e in range(4):
+        out.append(((16 * i + g + 8 * (e >> 1)) * np.ones_like(t),
+                    (8 * j + 2 * t + (e & 1)) * np.ones_like(g)))
+  return out
+
+
+def test_bf16_warp_tiles_cover_a_block_tile_once():
+  """Every element of a K4b block's 128 x 256 tile of dwh (two warpgroups'
+  wgmma of 64 x 256, warp w rows 16 w .. + 15), of a K4c block's 64 x 128
+  chunk of te_pre and dhi (two warpgroups' wgmma of 64 x 64, one a column
+  half, warp w rows 16 (w & 3) .. + 15), of its 64 x 128 tile of dwe
+  (mma.sync, warps 2 x 4 of 32 x 32), and of the 64 x 64 dcos part of a
+  chunk (warps 4 x 2 of 16 x 32) is held by exactly one accumulator of one
+  lane of one warp."""
+  plans = (((16, 256), (128, 256), lambda w: (16 * w, 0)),
+           ((16, 64), (64, 128), lambda w: (16 * (w & 3), 64 * (w >> 2))),
+           ((32, 32), (64, 128), lambda w: (32 * (w >> 2), 32 * (w & 3))),
+           ((16, 32), (64, 64), lambda w: (16 * (w & 3), 32 * (w >> 2))))
+  for (wr, wc), (tr, tc), origin in plans:
+    count = np.zeros((tr, tc), np.int64)
+    for warp in range(8):
+      r0, c0 = origin(warp)
+      for r, col in _lane_tile(wr, wc):
+        np.add.at(count, (r0 + r, c0 + col), 1)
+    assert (count == 1).all()
+
+
+def _k4c_ds_emb(b, s, groups, rc=64):
+  """K4c's ds_emb walk, one column, with g = row + 1 (sums exact): per
+  group, per 64-row chunk, the 4 row slices of 16. Where the chunk is one
+  stream, each slice's sum (slice 0's after the one handed on from the
+  last chunk) goes to hand[slice], and the four are added in slice order
+  after the barrier; else the slices run in order, each stream's sum handed
+  on through hand[slice + 1] (hand[0] after the last slice) when it runs on
+  past a slice's rows. Returns {stream: (writes, value)} and whether a
+  hand-on value was read before it was written."""
+  out, stale = {}, False
+
+  def record(st, x):
+    n, _ = out.get(st, (0, 0))
+    out[st] = (n + 1, x)
+
+  def rows_sum(w0, a, e, end):
+    return sum(r + 1 for r in range(w0, w0 + 16) if a <= r < min(e, end))
+
+  for lo, hi in _groups(b, groups):
+    row_lo, end = lo * s, hi * s
+    hand = [None] * 4
+    for r0 in range(row_lo, end, rc):
+      st0 = min(r0 // s, b - 1)
+      if st0 == min((r0 + rc - 1) // s, b - 1):
+        a, e = st0 * s, st0 * s + s
+        for sl in range(4):
+          x = rows_sum(r0 + 16 * sl, a, e, end)
+          if sl == 0 and a < r0:
+            stale |= hand[0] is None
+            x = (hand[0] or 0) + x
+          hand[sl] = x
+        x = ((hand[0] + hand[1]) + hand[2]) + hand[3]
+        hand = [x if e > r0 + rc else None] + [None] * 3
+        if e <= r0 + rc:
+          record(st0, x)
+        continue
+      for sl in range(4):
+        w0 = r0 + 16 * sl
+        w1 = min(w0 + 16, end)
+        src, dst = (0 if sl == 0 else sl), (0 if sl == 3 else sl + 1)
+        for st in range(w0 // s, (w1 - 1) // s + 1) if w0 < w1 else ():
+          a, e = st * s, st * s + s
+          x = rows_sum(w0, a, e, end)
+          if a < w0:
+            stale |= hand[src] is None
+            x = (hand[src] or 0) + x
+            hand[src] = None  # read once
+          if e > w1:
+            hand[dst] = x
+          else:
+            record(st, x)
+  return out, stale
+
+
+@pytest.mark.parametrize("b,s", BF16_SHAPES + [(2, 1), (5, 96), (2, 200),
+                                               (3, 8)])
+def test_bf16_ds_emb_walk_sums_each_stream_once(b, s):
+  groups = iqn_head.bf16_groups_d(b, s, D)
+  out, stale = _k4c_ds_emb(b, s, groups)
+  assert not stale
+  assert sorted(out) == list(range(b))
+  for st, (writes, value) in out.items():
+    assert writes == 1
+    assert value == sum(r + 1 for r in range(st * s, st * s + s))
+
+
+def _mma16(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """One bf16 `mma.sync.m16n8k16` as this plan models it (batched over
+  k-steps by the caller): bf16 x bf16 products exact, their sum added to
+  the f32 accumulator with truncation."""
+  return _trunc32(c.double() + a.double() @ b.double())
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+  return x.to(torch.bfloat16).float()
+
+
+def _k_order_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """a @ b (k = a's columns, b's rows, a multiple of 16) as one
+  accumulator of the bf16 kernels sums it: 16 k a step, in k order, each
+  step's exact products added with truncation."""
+  acc = torch.zeros(a.shape[0], b.shape[1])
+  steps = a.shape[1] // 16
+  prods = (a.reshape(a.shape[0], steps, 16).permute(1, 0, 2).double()
+           @ b.reshape(steps, 16, b.shape[1]).double())
+  for k in range(steps):
+    acc = _trunc32(acc.double() + prods[k])
+  return acc
+
+
+def test_bf16_products_fit_the_card_check_without_a_fold():
+  """The bf16 kernels' long sums, emulated in their k order with the tensor
+  cores' truncating adds and no rounding fold (the source has none): K4b's
+  dwh over a whole row group of the learn shape (205 chunks, 13,120 rows,
+  820 k-steps) for one 32-column slice of D, K4c's dhi (32 k-steps over H)
+  and dwe over its row group (103 chunks, 6,592 rows), each within a fifth
+  of the card check's 1e-4 relative Frobenius error against float64 sums of
+  the same bf16 operands; dwh's truncation error is printed (pytest -s)."""
+  assert "kFold" not in BF16_CU.read_text()
+  rng = np.random.RandomState(5)
+  n = lambda *shape: torch.from_numpy(rng.randn(*shape).astype(np.float32))
+  dc, s = 32, 64
+  rows_w = -(-1024 // iqn_head.bf16_groups_w(1024, s, D)) * 64
+  rows_d = -(-1024 // iqn_head.bf16_groups_d(1024, s, D)) * s
+  assert (rows_w, rows_d) == (13120, 6592)
+  we, be, wh = n(64, dc) * 0.05, n(dc) * 0.05, n(dc, 512) * 0.015
+  cos = n(rows_w, 64)
+  s_rows = torch.relu(n(rows_w // s + 1, dc)).repeat_interleave(s, 0)[:rows_w]
+  dh = n(rows_w, 512) * 0.05 * (n(rows_w, 512) > 0)
+  rel = lambda got, want: float(torch.linalg.vector_norm(got.double() - want)
+                                / torch.linalg.vector_norm(want))
+  hi = _bf16((torch.relu(_k_order_sum(_bf16(cos), _bf16(we)) + be)
+              * s_rows))
+  dwh = _k_order_sum(hi.t().contiguous(), _bf16(dh))
+  dwh_err = rel(dwh, hi.double().t() @ _bf16(dh).double())
+  print(f"bf16 dwh over {rows_w} rows, no fold: relative Frobenius "
+        f"{dwh_err:.3e}")
+  assert dwh_err <= 2e-5
+  r = slice(0, rows_d)
+  dhi = _k_order_sum(_bf16(dh[r]), _bf16(wh).t().contiguous())
+  assert rel(dhi, _bf16(dh[r]).double() @ _bf16(wh).double().t()) <= 2e-5
+  dte = _bf16(dhi * s_rows[r])
+  dwe = _k_order_sum(_bf16(cos[r]).t().contiguous(), dte)
+  assert rel(dwe, _bf16(cos[r]).double().t() @ dte.double()) <= 2e-5
+
+
+def test_staging_plain_rounds_as_jax_and_sums_dbh():
+  """The staging pass's plain version: its bf16 copies of dh, cos, we
+  (transposed) and wh equal JAX's astype(bfloat16) bit for bit, ties to
+  even, ±0, subnormals, ±inf and overflow included; its dbh equals
+  jnp.sum(dh, axis=0) within rtol 1e-5, atol 1e-6 x max|dbh| (f32 sums in
+  other orders); the wrapper takes it for CPU tensors."""
+  rng = np.random.RandomState(6)
+  b, s, d = 3, 24, 64
+  special = np.array([0x3F808000, 0x3F818000, 0x3F80FFFF, 0x3F808001,
+                      0x80000000, 0x00000000, 0x00000001, 0x807FFFFF,
+                      0x00008000, 0x00018000, 0x7F800000, 0xFF800000,
+                      0x7F7FFFFF, 0x7F7F7FFF, 0xBF808000, 0x80018000],
+                     dtype=np.uint32).view(np.float32)
+  arrays = dict(we=rng.randn(64, d), cos=rng.randn(b, s, 64),
+                dh=rng.randn(b * s, 512) * 0.05, wh=rng.randn(d, 512))
+  arrays = {k: v.astype(np.float32) for k, v in arrays.items()}
+  for k in ("we", "cos", "wh"):
+    arrays[k].reshape(-1)[:16] = special
+  t = {k: torch.from_numpy(v) for k, v in arrays.items()}
+  got = iqn_head.iqn_head_stage_bf16(t["we"], t["cos"], t["dh"], t["wh"])
+  bits = lambda x: np.asarray(x.astype(jnp.bfloat16)).view(np.uint16)
+  want = dict(dh=bits(jnp.asarray(arrays["dh"])),
+              cos=bits(jnp.asarray(arrays["cos"]).reshape(b * s, 64)),
+              we_t=bits(jnp.asarray(arrays["we"]).T),
+              wh=bits(jnp.asarray(arrays["wh"])))
+  for name, w in want.items():
+    g = getattr(got, name)
+    assert g.dtype == torch.bfloat16
+    np.testing.assert_array_equal(g.view(torch.int16).numpy().view(np.uint16),
+                                  w)
+  want_dbh = np.asarray(jnp.sum(jnp.asarray(arrays["dh"]), axis=0))
+  np.testing.assert_allclose(got.dbh.numpy(), want_dbh, rtol=1e-5,
+                             atol=1e-6 * np.abs(want_dbh).max())
+  assert iqn_head.iqn_head_stage_bf16(t["we"], t["cos"], t["dh"]).wh is None

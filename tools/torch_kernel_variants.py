@@ -3,10 +3,11 @@ card.
 
   python tools/torch_kernel_variants.py [check ...] [--parent=PATH]
 
-(checks: mma_peak k3_parts k4a k4b k4b_parts k4c k4c_parts k4c_sass k2
-k2_parent k1; all but k2_parent by default. --parent names another version
-of the sources, such as the parent commit's: the root of its checkout, or
-one source file, for k3_parts (csrc/dqn_torso.cu), k2 and k2_parent
+(checks: mma_peak k3_parts k4a k4b k4b_parts k4c k4c_parts k4c_sass
+k4_bf16 k4_bf16_parts k2 k2_parent k1; all but k2_parent and k4_bf16 by
+default. --parent names another version of the sources, such as the parent
+commit's: the root of its checkout, or one source file, for k3_parts
+(csrc/dqn_torso.cu), k4_bf16 (csrc/iqn_head_bwd.cu), k2 and k2_parent
 (csrc/pooled_frame_to_84.cu) to time beside this one.)
 
 Prints one JSON line per check, each time a device time from CUDA-graph
@@ -51,6 +52,18 @@ replays (the host out of the way):
             splits on the FP32 pipe (Veltkamp's) or left out: where the time
             of a 128-row step goes;
   K4C_SASS  instructions and HMMA of K4c's loops that issue `mma`;
+  K4_BF16   K4b and K4c in bf16 mode at the learn shape: this source's
+            kernels (csrc/iqn_head_bwd_bf16.cu, on operands staged once;
+            the staging pass timed apart) against the --parent checkout's
+            bf16 mode of csrc/iqn_head_bwd.cu, and the f32 K4b and K4c of
+            both, in turns (parent, this, this, parent); and whether the f32
+            kernels' SASS (cuobjdump, addresses and encodings dropped) is
+            the parent's instruction for instruction;
+  K4_BF16_PARTS the bf16 K4b and K4c at the learn shape with one phase cut
+            out at a time (w_*: K4b's te_pre products, all of te, its dwh
+            products, its loads; d_*: K4c's dhi, te_pre and dwe products,
+            ds_emb, the dh copies, and all but dhi's products): where the
+            time of each goes;
   K2        K2 (csrc/pooled_frame_to_84.cu) at B=128 (train; 8 rotated
             input sets, 206 MB, larger than the 50 MB L2) and B=4 (eval; 8
             sets of 0.8 MB, which stay in L2 as freshly rendered frames
@@ -287,12 +300,12 @@ def k4a(dev, gen) -> None:
 
 def k4c(dev, gen) -> None:
   src = (kernels.CSRC / "iqn_head_bwd.cu").read_text()
-  plain = "mma_op<kBf16>(acc"
+  plain = "mma_3xtf32(acc"
   if src.count(plain) != 2:
     raise SystemExit("iqn_head_bwd.cu's dhi products are not as expected")
   libs = {"kernel": bwd_build("iqn_head_bwd", src),
           "dhi_fold": bwd_build("iqn_head_bwd_dhi_fold",
-                                src.replace(plain, "mma_op_rn<kBf16>(acc"))}
+                                src.replace(plain, "mma_3xtf32_rn(acc"))}
   for b, s, need_dcos in [(1024, 64, False), (128, 64, True)]:
     line = k4c_run(dev, gen, libs, b, s, need_dcos, check=True)
     print("K4C " + json.dumps(line), flush=True)
@@ -302,11 +315,11 @@ def k4c(dev, gen) -> None:
 K4C_CUTS = {
     "no_dh_copies": [
         ("if (q + kStages - 1 < nchunks) copy_dh(q + kStages - 1);", "")],
-    "no_dhi_mma": [("mma_op<kBf16>(acc[j], a0b", "(void)(acc[j], a0b"),
-                   ("mma_op<kBf16>(acc_odd[j], a1b",
+    "no_dhi_mma": [("mma_3xtf32(acc[j], a0b", "(void)(acc[j], a0b"),
+                   ("mma_3xtf32(acc_odd[j], a1b",
                     "(void)(acc_odd[j], a1b")],
-    "no_te_pre_mma": [("mma_op<kBf16>(tp[j], ab, as, bb, bs);", "")],
-    "no_dwe_mma": [("mma_op_rn<kBf16>(dwe_acc[jj], ab, as, bb, bs);", "")],
+    "no_te_pre_mma": [("mma_3xtf32(tp[j], ab, as, bb, bs);", "")],
+    "no_dwe_mma": [("mma_3xtf32_rn(dwe_acc[jj], ab, as, bb, bs);", "")],
     "no_ds_emb_sums": [("k < nst; k += kWarps", "k < 0; k += kWarps")],
     "no_semb_loads": [("sv[h][j] = __ldg(reinterpret_cast<const float2*>"
                        "(sp + 8 * j));", "sv[h][j] = make_float2(1.f, 1.f);")],
@@ -315,14 +328,14 @@ K4C_CUTS = {
                            "\n\n    // dwe +=")],
 }
 K4C_CUTS["fp32_pipe_split"] = [  # Veltkamp's split on the FP32 pipe
-    ("split_op<kBf16>(", "split_fp32("),
+    ("split_tf32(", "split_fp32("),
     ('#include "tf32_mma.cuh"\n',
      '#include "tf32_mma.cuh"\nnamespace { __device__ __forceinline__ void '
      'split_fp32(float x, uint32_t& b, uint32_t& s) { const float c = '
      '__fmul_rn(x, 8193.f); const float h = __fsub_rn(c, __fsub_rn(c, x)); '
      'b = __float_as_uint(h); s = __float_as_uint(__fsub_rn(x, h)); } }\n')]
 K4C_CUTS["no_splits"] = [  # raw bits as both parts: no split instructions
-    ("split_op<kBf16>(", "split_none("),
+    ("split_tf32(", "split_none("),
     ('#include "tf32_mma.cuh"\n',
      '#include "tf32_mma.cuh"\nnamespace { __device__ __forceinline__ void '
      'split_none(float x, uint32_t& b, uint32_t& s) { b = s = '
@@ -353,9 +366,9 @@ def k4b(dev, gen) -> None:
 
 # K4b's phases, each cut out by replacing its text in the source.
 K4B_CUTS = {
-    "no_te_pre_mma": [("mma_op<kBf16>(tp[i][h], ab, as, bb[h], bs[h]);", "")],
-    "no_dwh_mma": [("mma_op<kBf16>(kFold ? pend[i][n] : acc[i][n], ab[i], "
-                    "as[i], bb,\n                          bs);", ";")],
+    "no_te_pre_mma": [("mma_3xtf32(tp[i][h], ab, as, bb[h], bs[h]);", "")],
+    "no_dwh_mma": [("mma_3xtf32(kFold ? pend[i][n] : acc[i][n], ab[i], "
+                    "as[i], bb, bs);", ";")],
     "no_dh_copies": [
         ("if (q + kWStages - 1 < nchunks) copy_dh(q + kWStages - 1);", "")],
     "no_splits": K4C_CUTS["no_splits"],
@@ -513,6 +526,187 @@ def k4c_run(dev, gen, libs, b, s, need_dcos, check):
     line[name] = dict(ms=graph_ms(call, n=5 if b == 1024 else 20), **errs)
     del got, want
   return line
+
+
+def _bf16_head(dev, gen, b, s):
+  """The bf16 backward kernels' inputs at (b, s), made as chip_smoke.py
+  makes them, and their staging."""
+  n = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+  d = 3136
+  we, be, wh = n(64, d) * 0.05, n(d) * 0.05, n(d, 512) * 0.015
+  cos_emb, s_emb = n(b, s, 64), torch.relu(n(b, d))
+  dh = (n(b * s, 512) * 0.05 * (n(b * s, 512) > 0)).contiguous()
+  return (we, be, wh, cos_emb, s_emb, dh,
+          ih.iqn_head_stage_bf16(we, cos_emb, dh, wh))
+
+
+def _sass(lib_path, kernel: str):
+  """The SASS instructions of the function whose name holds `kernel` and not
+  `ILb1E` (a `<true>` instantiation of a template, such as the parent's
+  bf16 mode), by cuobjdump, addresses and encodings dropped."""
+  tool = os.path.join(os.path.dirname(kernels.find_nvcc()), "cuobjdump")
+  sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                        text=True, check=True).stdout
+  body = [f for f in re.split(r"\n\s*Function : ", sass)
+          if kernel in f.split("\n", 1)[0]
+          and "ILb1E" not in f.split("\n", 1)[0]]
+  if len(body) != 1:
+    raise SystemExit(f"{kernel}: {len(body)} functions in {lib_path}")
+  return re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*;)", body[0])
+
+
+def k4_bf16(dev, gen, parent=None) -> None:
+  """K4b and K4c in bf16 mode: this source's kernels (csrc/
+  iqn_head_bwd_bf16.cu, on staged operands; the staging pass timed apart)
+  against the --parent checkout's bf16 mode of csrc/iqn_head_bwd.cu (f32
+  operands rounded at each load, TF32 mma), and the f32 K4b and K4c of both,
+  in turns (parent, this, this, parent) at the learn shape; and whether the
+  f32 kernels' SASS is the parent's."""
+  src = parent_source(parent, "iqn_head_bwd.cu")
+  if src is None:
+    raise SystemExit("k4_bf16 needs --parent (a checkout root)")
+  plib = bwd_build("parent_iqn_head_bwd", open(src).read())
+  for name in ("dz_iqn_head_bwd_w_bf16", "dz_iqn_head_bwd_d_bf16"):
+    f32 = ih.BWD_W if name.endswith("w_bf16") else ih.BWD_D
+    getattr(plib, name).argtypes = f32.argtypes
+    getattr(plib, name).restype = ctypes.c_int
+  b, s, d = 1024, 64, 3136
+  we, be, wh, cos_emb, s_emb, dh, st = _bf16_head(dev, gen, b, s)
+  groups = ih.row_groups(b, s)
+  out_w = torch.empty(d * 512 + 512, device=dev)
+  part_w = torch.empty((groups, d * 512 + 512), device=dev)
+  out_d = torch.empty(64 * d + d, device=dev)
+  part_d = torch.empty((groups, 64 * d + d), device=dev)
+  ds_emb = torch.empty((b, d), device=dev)
+
+  def parent_w(entry):
+    if getattr(plib, entry)(
+        cos_emb.data_ptr(), s_emb.data_ptr(), dh.data_ptr(), we.data_ptr(),
+        be.data_ptr(), out_w.data_ptr(), part_w.data_ptr(), b, s, d, groups,
+        kernels.stream_ptr(dev)) != 0:
+      raise SystemExit(f"parent {entry} failed")
+
+  def parent_d(entry):
+    if getattr(plib, entry)(
+        cos_emb.data_ptr(), s_emb.data_ptr(), dh.data_ptr(), we.data_ptr(),
+        be.data_ptr(), wh.data_ptr(), out_d.data_ptr(), part_d.data_ptr(),
+        ds_emb.data_ptr(), None, None, None, b, s, d, groups,
+        kernels.stream_ptr(dev)) != 0:
+      raise SystemExit(f"parent {entry} failed")
+
+  bf = torch.bfloat16
+  runs = {
+      "k4b_bf16": (lambda: parent_w("dz_iqn_head_bwd_w_bf16"),
+                   lambda: ih.iqn_head_bwd_w(we, be, cos_emb, s_emb, dh,
+                                             mm=bf, staged=st)),
+      "k4c_bf16": (lambda: parent_d("dz_iqn_head_bwd_d_bf16"),
+                   lambda: ih.iqn_head_bwd_d(we, be, wh, cos_emb, s_emb, dh,
+                                             need_dcos=False, mm=bf,
+                                             staged=st)),
+      "k4b_f32": (lambda: parent_w("dz_iqn_head_bwd_w"),
+                  lambda: ih.iqn_head_bwd_w(we, be, cos_emb, s_emb, dh)),
+      "k4c_f32": (lambda: parent_d("dz_iqn_head_bwd_d"),
+                  lambda: ih.iqn_head_bwd_d(we, be, wh, cos_emb, s_emb, dh,
+                                            need_dcos=False)),
+  }
+  line = dict(shape=f"B={b} S={s}")
+  for name, (par, this) in runs.items():
+    order = [("parent", par), ("this", this), ("this", this),
+             ("parent", par)]
+    got = collections.defaultdict(list)
+    for who, fn in order:
+      got[who].append(graph_ms(fn, n=5))
+    line[name] = dict(got)
+  line["stage_bf16_ms"] = graph_ms(
+      lambda: ih.iqn_head_stage_bf16(we, cos_emb, dh, wh), n=5)
+  kernels.load("iqn_head_bwd.cu")
+  this_lib = kernels._lib_path("iqn_head_bwd.cu")
+  for kernel in ("iqn_head_bwd_w_kernel", "iqn_head_bwd_d_kernel"):
+    mine = _sass(this_lib, kernel)
+    theirs = _sass(OUT / "parent_iqn_head_bwd.so", kernel)
+    line[f"{kernel}_sass"] = dict(
+        instructions=len(mine), parent_instructions=len(theirs),
+        identical=mine == theirs,
+        differing=sum(a != b for a, b in zip(mine, theirs)))
+  print("K4_BF16 " + json.dumps(line), flush=True)
+
+
+# The bf16 kernels' phases, each cut out by replacing its text in
+# csrc/iqn_head_bwd_bf16.cu (the outputs are then wrong; only the time
+# counts).
+K4_BF16_CUTS = {
+    "w_no_te_mma": [("mma_bf16(tp[2 * pp], afr[ks], b[0], b[1]);\n"
+                     "          mma_bf16(tp[2 * pp + 1], afr[ks], b[2], "
+                     "b[3]);", "")],
+    "w_no_te": [("if (k + 1 < nsteps) te(k + 1, next);", "")],
+    "w_no_dwh_mma": [("wgmma_256(acc, a[kk], desc_sw128(dhb + kk * 16 * 128, "
+                      "kRC * 128, 1024));", ";")],
+    "w_no_loads": [("if (k + kWStages - 1 < nsteps) load_chunk(k + kWStages "
+                    "- 1);", "")],
+    "d_no_dhi_mma": [("        wgmma_64_ss(acc,\n",
+                      "        if (false) wgmma_64_ss(acc,\n")],
+    "d_no_te_pre_mma": [("          wgmma_64_ss(tp, desc_sw128(cosb",
+                         "          if (false) wgmma_64_ss(tp, "
+                         "desc_sw128(cosb")],
+    "d_no_dwe_mma": [("mma_bf16(dwe_acc[i][2 * p], a[i], b[p][0], "
+                      "b[p][1]);\n          mma_bf16(dwe_acc[i][2 * p + 1], "
+                      "a[i], b[p][2], b[p][3]);", "")],
+    "d_no_ds_emb": [("slice_sums(st0 * s, st0 * s + s, v);", ""),
+                    ("for (int st = w0 / s; w0 < w1 && st <= (w1 - 1) / s; "
+                     "++st) {", "for (int st = 0; st < 0; ++st) {")],
+    "d_no_dh_copies": [("if (q + kDStages - 1 < nq) copy_dh(q + kDStages - "
+                        "1);", "")],
+}
+K4_BF16_CUTS["d_dhi_only"] = [cut for name in (
+    "d_no_te_pre_mma", "d_no_dwe_mma", "d_no_ds_emb") for cut in
+                              K4_BF16_CUTS[name]]
+K4_BF16_CUTS["d_dhi_mma_only"] = K4_BF16_CUTS["d_dhi_only"] + \
+    K4_BF16_CUTS["d_no_dh_copies"]
+
+
+def _ok(name: str, err: int) -> None:
+  if err != 0:
+    raise SystemExit(f"{name}: launch failed with error {err}")
+
+
+def k4_bf16_parts(dev, gen) -> None:
+  """K4b and K4c in bf16 mode at the learn shape with one phase cut out at a
+  time (w_*: K4b's, d_*: K4c's; no dcos): where their time goes."""
+  src = (kernels.CSRC / "iqn_head_bwd_bf16.cu").read_text()
+  b, s, d = 1024, 64, 3136
+  we, be, wh, cos_emb, s_emb, dh, st = _bf16_head(dev, gen, b, s)
+  gw, gd = ih.bf16_groups_w(b, s, d), ih.bf16_groups_d(b, s, d)
+  out_w = torch.empty((gw, d, 512), device=dev)
+  out_d = torch.empty((gd, 64 * d + d), device=dev)
+  ds_emb = torch.empty((b, d), device=dev)
+  variants = {"kernel": src}
+  for name, cuts in K4_BF16_CUTS.items():
+    cut = src
+    for old, new in cuts:
+      if old not in cut:
+        raise SystemExit(f"{name}: {old!r} is no longer in "
+                         "iqn_head_bwd_bf16.cu")
+      cut = cut.replace(old, new)
+    variants[name] = cut
+  line = dict(shape=f"B={b} S={s}", groups_w=gw, groups_d=gd)
+  for name, text in variants.items():
+    lib = build(f"iqn_head_bwd_bf16_{name}", text)
+    for kernel in (ih.BWD_W_BF16, ih.BWD_D_BF16):
+      getattr(lib, kernel.symbol).argtypes = kernel.argtypes
+      getattr(lib, kernel.symbol).restype = ctypes.c_int
+    # out doubles as the groups' partials (the sum of group partials reads
+    # each element before it writes it), so the time includes that sum.
+    w = lambda: _ok(name, lib.dz_iqn_head_bwd_w_bf16(
+        st.cos.data_ptr(), s_emb.data_ptr(), st.dh.data_ptr(),
+        st.we_t.data_ptr(), be.data_ptr(), out_w.data_ptr(),
+        out_w.data_ptr(), b, s, d, gw, kernels.stream_ptr(dev)))
+    dd = lambda: _ok(name, lib.dz_iqn_head_bwd_d_bf16(
+        st.cos.data_ptr(), s_emb.data_ptr(), st.dh.data_ptr(),
+        st.we_t.data_ptr(), be.data_ptr(), st.wh.data_ptr(),
+        out_d.data_ptr(), out_d.data_ptr(), ds_emb.data_ptr(), None, None,
+        None, b, s, d, gd, kernels.stream_ptr(dev)))
+    line[name] = dict(w_ms=graph_ms(w, n=5), d_ms=graph_ms(dd, n=5))
+  print("K4_BF16_PARTS " + json.dumps(line), flush=True)
 
 
 # K2's phases, each cut by a text substitution after its block barrier (the
@@ -698,10 +892,13 @@ def main() -> int:
                 k4c=lambda: k4c(dev, gen),
                 k4c_parts=lambda: k4c_parts(dev, gen),
                 k4c_sass=lambda: k4c_sass(dev, gen),
+                k4_bf16=lambda: k4_bf16(dev, gen, *parent),
+                k4_bf16_parts=lambda: k4_bf16_parts(dev, gen),
                 k2=lambda: k2(dev, gen, *parent),
                 k2_parent=lambda: k2(dev, gen, *parent, parent_only=True),
                 k1=lambda: k1(dev, gen))
-  for name in names or [c for c in checks if c != "k2_parent"]:
+  for name in names or [c for c in checks
+                        if c not in ("k2_parent", "k4_bf16")]:
     checks[name]()
   return 0
 

@@ -5,12 +5,14 @@
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. build every CUDA kernel from dqn_zoo_torch/csrc (one nvcc per source,
      all in parallel) and print the build time and what `-Xptxas -v` says
-     of each kernel (registers, static shared memory, spills; K4b's and
-     K4c's, both modes, and K2's dynamic shared memory beside it);
+     of each kernel (registers, static shared memory, spills; K4a's bf16
+     kernel's, K4b's and K4c's, both modes, and K2's dynamic shared memory
+     beside it);
   2. hold each kernel against its plain PyTorch version at the main paths'
      shapes (K1 at W = 5 and W = 7; K4a, K4b and K4c also in their
-     bf16-operand mode, bound at the bf16 rate, K4b's and K4c's after the
-     staging pass that rounds their operands), and time kernel, plain
+     bf16-operand mode, bound at the bf16 rate, each after the staging
+     pass that rounds its operands: K4a's at the act, learn, eval and a
+     ragged shape), and time kernel, plain
      version, library call and bound; then SEAQUEST: 64 groups of the
      port's vector seaquest at 128 envs on the card and on the CPU from the
      same draws
@@ -91,8 +93,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      superstep), and print the replay-less checkpoint's bytes; then
      IQN_BF16_HEAD, the same phase with the network built at
      head_matmul_dtype=bfloat16 (the bf16 entries of K4a, K4b and K4c 2,
-     1, 1, 1 a learning superstep, their staging pass 1, their f32 entries
-     0), its ms a learning superstep beside the f32 head's; then
+     1, 1, 1 a learning superstep, the backward's staging pass 1 and
+     K4a's 3, one a K4a launch, their f32 entries 0), its ms a learning
+     superstep beside the f32 head's; then
      IQN_MS_PACMAN_MAIN, the same phase for build_engine("iqn",
      "ms_pacman", ...): 9 actions (K4a's last column tile ragged), episodes
      cut short by lost lives, the timed supersteps that took the reset
@@ -178,6 +181,10 @@ TPU_KERNELS = {
     # bf16 rounding of the reference's `_dot`, done once for both.
     "iqn_head_stage_bf16": "none (the operand rounding of `_dot`, "
                            "dqn_zoo_tpu/nets/iqn_head.py:92)",
+    # So does K4a's bf16 staging pass: the same rounding of the weights,
+    # laid out as the kernel's shared-memory stages, once a launch.
+    "iqn_head_stage_fwd_bf16": "none (the operand rounding of `_dot`, "
+                               "dqn_zoo_tpu/nets/iqn_head.py:92)",
 }
 SOURCES = {
     "gather_windows": "dqn_zoo_torch/csrc/window_gather.cu",
@@ -188,8 +195,9 @@ SOURCES = {
     "iqn_head_fwd_residuals": "dqn_zoo_torch/csrc/iqn_head.cu",
     "iqn_head_bwd_w": "dqn_zoo_torch/csrc/iqn_head_bwd.cu",
     "iqn_head_bwd_d": "dqn_zoo_torch/csrc/iqn_head_bwd.cu",
-    "iqn_head_fwd_bf16": "dqn_zoo_torch/csrc/iqn_head.cu",
-    "iqn_head_fwd_residuals_bf16": "dqn_zoo_torch/csrc/iqn_head.cu",
+    "iqn_head_fwd_bf16": "dqn_zoo_torch/csrc/iqn_head_bf16.cu",
+    "iqn_head_fwd_residuals_bf16": "dqn_zoo_torch/csrc/iqn_head_bf16.cu",
+    "iqn_head_stage_fwd_bf16": "dqn_zoo_torch/csrc/iqn_head_bf16.cu",
     "iqn_head_bwd_w_bf16": "dqn_zoo_torch/csrc/iqn_head_bwd_bf16.cu",
     "iqn_head_bwd_d_bf16": "dqn_zoo_torch/csrc/iqn_head_bwd_bf16.cu",
     "iqn_head_stage_bf16": "dqn_zoo_torch/csrc/iqn_head_bwd_bf16.cu",
@@ -240,12 +248,12 @@ PATH_KERNELS = {
     # (the reference's fused torso computes in f32 only).
     "bf16": ("gather_windows", "pooled_frame_to_84"),
     # iqn/pong with the head's bf16-operand mode: the f32 torso (K3), the
-    # bf16 entries of K4a, K4b and K4c and the latter two's staging pass.
+    # bf16 entries of K4a, K4b and K4c and their two staging passes.
     "iqn_bf16_head": ("gather_windows", "pooled_frame_to_84",
                       "dqn_torso_fwd", "dqn_torso_fwd_residuals",
                       "iqn_head_fwd_bf16", "iqn_head_fwd_residuals_bf16",
                       "iqn_head_bwd_w_bf16", "iqn_head_bwd_d_bf16",
-                      "iqn_head_stage_bf16"),
+                      "iqn_head_stage_bf16", "iqn_head_stage_fwd_bf16"),
 }
 # Launches a learning superstep of dqn/pong (act and target: K3a twice).
 DQN_PER_LEARNING_SUPERSTEP = {"gather_windows": 1, "pooled_frame_to_84": 1,
@@ -807,11 +815,12 @@ def check_head_bf16(dev, gen, report, head_inputs):
   sum of 512 products of bf16(h), where h's ~4e-4 flips move ~1e-4:
   tests/test_torch_cuda.py), and q must lie nearer the plain bf16 head than
   the f32 head does (a tenth of that distance); with h, q from the
-  kernel's own h within 1e-5. K4b and K4c take their operands from the
-  staging pass (csrc/iqn_head_bwd_bf16.cu), checked first: its bf16 copies
-  bit for bit the plain version's, bound by bytes; the two kernels are
-  timed on its output, as cuBLAS is on operands cast beforehand, and with
-  the staging pass beside (`ms_with_staging`)."""
+  kernel's own h within 1e-5. K4a reads the weights as its staging pass
+  (csrc/iqn_head_bf16.cu) lays them out, checked first: its bytes bit for
+  bit the plain version's, bound by bytes. K4b and K4c take their operands
+  from theirs (csrc/iqn_head_bwd_bf16.cu), checked next, likewise. Each
+  kernel is timed on its staged operands, as cuBLAS is on operands cast
+  beforehand, and with its staging pass beside (`ms_with_staging`)."""
   from dqn_zoo_torch.nets import iqn_head
   mm = torch.bfloat16
   bf = lambda *ts: [t.to(mm) for t in ts]
@@ -825,11 +834,38 @@ def check_head_bf16(dev, gen, report, head_inputs):
     return torch.addmm(bo, torch.addmm(bh, hi, wh).relu_(), wo)
 
   with torch.no_grad():
-    for b, s, res, role in ((128, 64, False, "act"),
-                            (1024, 128, False, "learn_target"),
-                            (1024, 64, True, "learn_online")):
-      args = head_inputs(b, s, 6)
-      got = iqn_head.iqn_head_forward(*args, residuals=res, mm=mm)
+    # K4a's staging pass: its bytes bit for bit the plain version's, and a
+    # second launch the same bytes.
+    we, be, wh = head_inputs(1, 1, 6)[:3]
+    st = iqn_head.iqn_head_stage_fwd_bf16(we, be, wh)
+    if not torch.equal(st, iqn_head.iqn_head_stage_fwd_bf16_plain(we, be,
+                                                                  wh)):
+      fail("K4a's staging pass differs from its plain version")
+    if not torch.equal(st, iqn_head.iqn_head_stage_fwd_bf16(we, be, wh)):
+      fail("K4a's staging pass: two launches gave different bytes")
+    nbytes, flops = iqn_head.bound_counts_stage_fwd_bf16()
+    stage = lambda: iqn_head.iqn_head_stage_fwd_bf16(we, be, wh)
+    results["iqn_head_stage_fwd_bf16"] = report(
+        "iqn_head_stage_fwd_bf16", "D=3136", 0.0, "bytes bit for bit",
+        time_ms(stage, iters=20),
+        time_ms(lambda: iqn_head.iqn_head_stage_fwd_bf16_plain(we, be, wh),
+                iters=20),
+        None, nbytes, flops, role="every K4a bf16 launch",
+        graph_ms=graph_ms(stage), bit_identical_repeat=True)
+    del we, be, wh, st
+
+    # K4a at the iqn path's shapes (act, the learn step's target and online
+    # nets), then eval (D split over blocks) and a ragged shape at A = 18
+    # (streams straddle the warpgroups' rows: s_emb read row by row).
+    for b, s, a, res, role in ((128, 64, 6, False, "act"),
+                               (1024, 128, 6, False, "learn_target"),
+                               (1024, 64, 6, True, "learn_online"),
+                               (4, 64, 6, False, "eval"),
+                               (3, 24, 18, True, "ragged")):
+      args = head_inputs(b, s, a)
+      st = iqn_head.iqn_head_stage_fwd_bf16(*args[:3])
+      got = iqn_head.iqn_head_forward(*args, residuals=res, mm=mm,
+                                      staged=st)
       again = iqn_head.iqn_head_forward(*args, residuals=res, mm=mm)
       want_q, want_h = iqn_head.iqn_head_plain_residuals(*args, mm=mm)
       f32_q = iqn_head.iqn_head_plain(*args)
@@ -852,22 +888,27 @@ def check_head_bf16(dev, gen, report, head_inputs):
              f"{extra}")
       lib_args = bf(*args[:6]) + bf(args[6].reshape(b * s, -1), args[7])
       name = "iqn_head_fwd_residuals_bf16" if res else "iqn_head_fwd_bf16"
-      nbytes, flops = iqn_head.bound_counts(b, s, 6, residuals=res)
+      nbytes, flops = iqn_head.bound_counts(b, s, a, residuals=res)
       iters = 5 if b == 1024 else 20
+      kernel = lambda: iqn_head.iqn_head_forward(*args, residuals=res, mm=mm,
+                                                 staged=st)
+      library_ms = time_ms(lambda: fwd_library(*lib_args, b, s), iters=iters)
       line = report(
-          name, f"B={b} S={s} A=6", float((got[0] - want_q).abs().max()),
-          tol,
-          time_ms(lambda: iqn_head.iqn_head_forward(*args, residuals=res,
-                                                    mm=mm), iters=iters),
+          name, f"B={b} S={s} A={a}", float((got[0] - want_q).abs().max()),
+          tol, time_ms(kernel, iters=iters),
           time_ms(lambda: iqn_head.iqn_head_plain_residuals(*args, mm=mm),
                   iters=iters),
-          time_ms(lambda: fwd_library(*lib_args, b, s), iters=iters),
-          nbytes, flops, peak_flops=PEAK_BF16_FLOPS, role=role,
+          library_ms, nbytes, flops, peak_flops=PEAK_BF16_FLOPS, role=role,
           rel_frobenius_err=fro, f32_head_rel_frobenius=f32_fro,
-          bit_identical_repeat=True, **extra)
+          bit_identical_repeat=True, splits=iqn_head.bf16_fwd_splits(b, s),
+          graph_ms=graph_ms(kernel),
+          ms_with_staging=time_ms(lambda: iqn_head.iqn_head_forward(
+              *args, residuals=res, mm=mm), iters=iters),
+          library_graph_ms=graph_ms(lambda: fwd_library(*lib_args, b, s)),
+          **extra)
       if role in ("act", "learn_online"):
         results[name] = line
-      del args, got, again, want_q, want_h, f32_q, lib_args
+      del args, got, again, want_q, want_h, f32_q, lib_args, st
 
     b, s = 1024, 64
     args = head_inputs(b, s, 6)
@@ -2352,8 +2393,10 @@ def phase_iqn_path(dev, game: str = "pong", head_matmul_dtype=None):
   want = {fwd_res: 1, bwd_w: 1, bwd_d: 1, "gather_windows": 1,
           "dqn_torso_fwd_residuals": 1, "pooled_frame_to_84": 1,
           fwd: 2, "dqn_torso_fwd": 2}
-  if bf16:  # one staging pass feeds both bf16 backward kernels
+  if bf16:  # one staging pass feeds both bf16 backward kernels, and each
+    # K4a launch stages its weights
     want["iqn_head_stage_bf16"] = 1
+    want["iqn_head_stage_fwd_bf16"] = 3
   want = {k: want.get(k, 0) for k in per_learning_superstep}
   if per_learning_superstep != want:
     fail(f"launches per iqn learning superstep {per_learning_superstep}, "
@@ -2392,6 +2435,10 @@ def phase_iqn_path(dev, game: str = "pong", head_matmul_dtype=None):
   for name in PATH_KERNELS[path]:
     if counts[name] == 0:
       fail(f"kernel {name} was not launched on the {path} path")
+  if bf16 and counts["iqn_head_stage_fwd_bf16"] != counts[fwd] + \
+      counts[fwd_res]:
+    fail(f"{tag}: {counts['iqn_head_stage_fwd_bf16']} staging passes for "
+         f"{counts[fwd] + counts[fwd_res]} K4a launches")
   for name in ("pooled_frame_to_84", "dqn_torso_fwd", fwd):
     if counts[name] - train_counts[name] < 100:
       fail(f"kernel {name} was launched {counts[name] - train_counts[name]} "
@@ -3165,16 +3212,19 @@ def main() -> int:
     k._func()
   print(f"BUILD {time.perf_counter() - t0:.2f} s "
         f"{json.dumps(built)}", flush=True)
-  # K4b's and K4c's (both modes) and K2's blocks take dynamic shared
-  # memory, which ptxas does not count: their sources report it.
+  # K4a's bf16 kernel's, K4b's and K4c's (both modes) and K2's blocks take
+  # dynamic shared memory, which ptxas does not count: their sources report
+  # it.
   from dqn_zoo_torch.prep import cuda_prep
   smem = kernels.load("iqn_head_bwd.cu").dz_iqn_head_bwd_smem
   smem_bf16 = kernels.load("iqn_head_bwd_bf16.cu").dz_iqn_head_bwd_bf16_smem
+  fwd_bf16 = kernels.load("iqn_head_bf16.cu").dz_iqn_head_fwd_bf16_sizes
   plan = cuda_prep.band_plan()
   dynamic = {"iqn_head_bwd_w_kernel": smem(0),
              "iqn_head_bwd_d_kernel": smem(1),
              "bwd_w_bf16_kernel": smem_bf16(0),
              "bwd_d_bf16_kernel": smem_bf16(1),
+             "fwd_bf16_kernel": fwd_bf16(2),
              "pooled_frame_to_84_kernel": kernels.load(
                  "pooled_frame_to_84.cu").dz_pooled_frame_to_84_smem(
                      plan.max_rows)}
@@ -3182,7 +3232,9 @@ def main() -> int:
     report = ptxas_report(log)
     for entry in report:
       for name, nbytes in dynamic.items():
-        if name in entry["function"]:
+        # The kernel's own name in the mangled one (after its length), not
+        # a longer name that ends with it.
+        if re.search(rf"\d{name}[IE]", entry["function"]):
           entry["dynamic_smem_bytes"] = nbytes
     print(f"PTXAS {source} {json.dumps(report)}", flush=True)
 

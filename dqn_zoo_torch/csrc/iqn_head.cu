@@ -72,14 +72,8 @@
 // Shared memory: split cosine tile 32 KB + 2 x split hi chunk 32 KB + 2 x we
 // chunk 20 KB + 2 x wh chunk 130 KB = 214 KB, one block per SM.
 //
-// bf16 mode (kBf16, the reference's `_fwd_call` with mm = bfloat16): the
-// operands of cos @ we, hi @ wh and h @ wo are rounded to bf16 (to nearest
-// even) as they are staged or loaded, and each tensor-core product takes one
-// TF32 pass in place of three: a bf16 value is exact in TF32, so the products
-// are exact and accumulate in f32, the reference's contract (tf32_mma.cuh).
-// The small parts are neither stored nor read; the folds stay. The s_emb
-// factor is f32, and h is stored unrounded (the backward's residual); only
-// the q epilogue's FMA loop reads it rounded, with wo rounded.
+// The bf16 mode (the reference's `_fwd_call` with mm = bfloat16) is a kernel
+// of its own on bf16 `wgmma`: csrc/iqn_head_bf16.cu.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -110,7 +104,7 @@ constexpr int kFinQA = 8;
 constexpr int kMaxDevices = 64;
 
 // grid (row tiles, splits); split y walks chunks [y * per, (y + 1) * per).
-template <bool kResiduals, bool kBf16>
+template <bool kResiduals>
 __global__ void __launch_bounds__(kThreads, 1)
 iqn_head_kernel(const float* __restrict__ cosx, const float* __restrict__ semb,
                 const float* __restrict__ we, const float* __restrict__ be,
@@ -164,7 +158,7 @@ iqn_head_kernel(const float* __restrict__ cosx, const float* __restrict__ semb,
     const float e[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      store_split<kBf16>(cos_b, cos_s, frag_at<kL / 8>(r, 4 * c4 + j), e[j]);
+      store_split(cos_b, cos_s, frag_at<kL / 8>(r, 4 * c4 + j), e[j]);
   }
 
   // te phase: this warp's 16 rows (tile rt) x 16 chunk columns (tiles ct,
@@ -202,12 +196,12 @@ iqn_head_kernel(const float* __restrict__ cosx, const float* __restrict__ semb,
     for (int ks = 0; ks < kL / 8; ++ks) {
       uint32_t ab[4], as[4];
       load_a(ab, cos_b + rt * kL * 16, ks, lane);
-      if constexpr (!kBf16) load_a(as, cos_s + rt * kL * 16, ks, lane);
+      load_a(as, cos_s + rt * kL * 16, ks, lane);
 #pragma unroll
       for (int j = 0; j < kTeJ; ++j) {
         uint32_t bb[2], bs[2];
-        load_b<kBf16>(bb, bs, wb + 8 * ks * kWeS + 8 * j, kWeS);
-        mma_op<kBf16>(te[j], ab, as, bb, bs);
+        load_b(bb, bs, wb + 8 * ks * kWeS + 8 * j, kWeS);
+        mma_3xtf32(te[j], ab, as, bb, bs);
       }
     }
     float* hb = hi_s + (c & 1) * 2 * kHi;
@@ -217,11 +211,9 @@ iqn_head_kernel(const float* __restrict__ cosx, const float* __restrict__ semb,
 #pragma unroll
       for (int i = 0; i < 2; ++i) {  // rows g (c0, c1) and g + 8 (c2, c3)
         const int m = 16 * rt + g + 8 * i;
-        store_split<kBf16>(
-            hb, hb + kHi, frag_at<kKC / 8>(m, col),
-            fmaxf(te[j][2 * i] + pre_b[j].x, 0.f) * pre_s[i][j].x);
-        store_split<kBf16>(
-            hb, hb + kHi, frag_at<kKC / 8>(m, col + 1),
+        store_split(hb, hb + kHi, frag_at<kKC / 8>(m, col),
+                    fmaxf(te[j][2 * i] + pre_b[j].x, 0.f) * pre_s[i][j].x);
+        store_split(hb, hb + kHi, frag_at<kKC / 8>(m, col + 1),
             fmaxf(te[j][2 * i + 1] + pre_b[j].y, 0.f) * pre_s[i][j].y);
       }
     }
@@ -257,15 +249,15 @@ iqn_head_kernel(const float* __restrict__ cosx, const float* __restrict__ semb,
       uint32_t bb[kJ][2], bs[kJ][2];
 #pragma unroll
       for (int j = 0; j < kJ; ++j)
-        load_b<kBf16>(bb[j], bs[j], wb + 8 * ks * kWhS + 8 * j, kWhS);
+        load_b(bb[j], bs[j], wb + 8 * ks * kWhS + 8 * j, kWhS);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         uint32_t ab[4], as[4];
         load_a(ab, hb + i * kKC * 16, ks, lane);
-        if constexpr (!kBf16) load_a(as, hb + kHi + i * kKC * 16, ks, lane);
+        load_a(as, hb + kHi + i * kKC * 16, ks, lane);
 #pragma unroll
         for (int j = 0; j < kJ; ++j)
-          mma_op_rn<kBf16>(acc[i][j], ab, as, bb[j], bs[j]);
+          mma_3xtf32_rn(acc[i][j], ab, as, bb[j], bs[j]);
       }
     }
   }
@@ -320,15 +312,6 @@ iqn_head_kernel(const float* __restrict__ cosx, const float* __restrict__ semb,
   // q[row][o] = sum over the 512 columns of h[row][col] wo[col][o] + bo[o]:
   // the thread's columns, then the quad, then the warps in warp order
   // through shared memory (over the wh buffers, which every warp has left).
-  // In bf16 mode h and wo enter the products rounded.
-  if constexpr (kBf16) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < kJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = round_bf16(acc[i][j][e]);
-  }
   __syncthreads();
   float* red = wh_s;  // [kWarps][kM rows][kQA outputs]
   for (int o0 = 0; o0 < a; o0 += kQA) {
@@ -339,10 +322,6 @@ iqn_head_kernel(const float* __restrict__ cosx, const float* __restrict__ semb,
       for (int j = 0; j < kJ; ++j) {
         w[j][0] = __ldg(wo + (long long)(col0 + 8 * j) * a + o0 + o);
         w[j][1] = __ldg(wo + (long long)(col0 + 8 * j + 1) * a + o0 + o);
-        if constexpr (kBf16) {
-          w[j][0] = round_bf16(w[j][0]);
-          w[j][1] = round_bf16(w[j][1]);
-        }
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -375,8 +354,8 @@ iqn_head_kernel(const float* __restrict__ cosx, const float* __restrict__ semb,
 
 // One block per row: h = relu(sum of the splits' partials in split order +
 // bh), h stored when asked for, q = h @ wo + bo by a shuffle tree over each
-// warp and the 4 warps in order (h and wo rounded to bf16 in bf16 mode).
-template <bool kResiduals, bool kBf16>
+// warp and the 4 warps in order.
+template <bool kResiduals>
 __global__ void __launch_bounds__(kFinThreads)
 iqn_head_finish_kernel(const float* __restrict__ part,
                        const float* __restrict__ bh,
@@ -406,21 +385,14 @@ iqn_head_finish_kernel(const float* __restrict__ part,
   v.w = fmaxf(v.w + bb.w, 0.f);
   if (kResiduals)
     *reinterpret_cast<float4*>(h + (long long)r * kH + col) = v;
-  if constexpr (kBf16)
-    v = make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z),
-                    round_bf16(v.w));
-  auto wv = [&](const float* p) {
-    const float x = __ldg(p);
-    return kBf16 ? round_bf16(x) : x;
-  };
   for (int o0 = 0; o0 < a; o0 += kFinQA) {
     const int na = min(kFinQA, a - o0);
     for (int o = 0; o < na; ++o) {
       const float* wp = wo + (long long)col * a + o0 + o;
-      float p = v.x * wv(wp);
-      p = fmaf(v.y, wv(wp + a), p);
-      p = fmaf(v.z, wv(wp + 2 * a), p);
-      p = fmaf(v.w, wv(wp + 3 * a), p);
+      float p = v.x * __ldg(wp);
+      p = fmaf(v.y, __ldg(wp + a), p);
+      p = fmaf(v.z, __ldg(wp + 2 * a), p);
+      p = fmaf(v.w, __ldg(wp + 3 * a), p);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         p += __shfl_xor_sync(0xffffffffu, p, off);
@@ -437,7 +409,7 @@ iqn_head_finish_kernel(const float* __restrict__ part,
   }
 }
 
-template <bool kResiduals, bool kBf16>
+template <bool kResiduals>
 cudaError_t launch(const void* cos, const void* semb, const void* we,
                    const void* be, const void* wh, const void* bh,
                    const void* wo, const void* bo, void* q, void* h,
@@ -449,7 +421,7 @@ cudaError_t launch(const void* cos, const void* semb, const void* we,
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(iqn_head_kernel<kResiduals, kBf16>,
+    err = cudaFuncSetAttribute(iqn_head_kernel<kResiduals>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kSmem);
     if (err != cudaSuccess) return err;
@@ -457,7 +429,7 @@ cudaError_t launch(const void* cos, const void* semb, const void* we,
   }
   const int rows = b * s;
   const int tiles = (rows + kM - 1) / kM;
-  iqn_head_kernel<kResiduals, kBf16>
+  iqn_head_kernel<kResiduals>
       <<<dim3(tiles, splits), kThreads, kSmem, st>>>(
       (const float*)cos, (const float*)semb, (const float*)we,
       (const float*)be, (const float*)wh, (const float*)bh,
@@ -466,29 +438,11 @@ cudaError_t launch(const void* cos, const void* semb, const void* we,
   if (splits > 1) {
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    iqn_head_finish_kernel<kResiduals, kBf16><<<rows, kFinThreads, 0, st>>>(
+    iqn_head_finish_kernel<kResiduals><<<rows, kFinThreads, 0, st>>>(
         (const float*)part, (const float*)bh, (const float*)wo,
         (const float*)bo, (float*)q, (float*)h, rows, a, splits);
   }
   return cudaGetLastError();
-}
-
-template <bool kBf16>
-int entry(const void* cos, const void* semb, const void* we, const void* be,
-          const void* wh, const void* bh, const void* wo, const void* bo,
-          void* q, void* h, void* part, int b, int s, int d, int a,
-          int residuals, int splits, int per, void* cuda_stream) {
-  cudaStream_t st = (cudaStream_t)cuda_stream;
-  if (b * s <= 0) return (int)cudaGetLastError();
-  if (splits < 1 || per < 1 || (splits - 1) * per >= d / kKC ||
-      splits * per < d / kKC || (splits > 1 && part == nullptr))
-    return (int)cudaErrorInvalidValue;
-  return (int)(residuals
-                   ? launch<true, kBf16>(cos, semb, we, be, wh, bh, wo, bo, q,
-                                         h, part, b, s, d, a, splits, per, st)
-                   : launch<false, kBf16>(cos, semb, we, be, wh, bh, wo, bo,
-                                          q, h, part, b, s, d, a, splits, per,
-                                          st));
 }
 
 }  // namespace
@@ -504,18 +458,14 @@ extern "C" int dz_iqn_head(const void* cos, const void* semb, const void* we,
                            void* part, int b, int s, int d, int a,
                            int residuals, int splits, int per,
                            void* cuda_stream) {
-  return entry<false>(cos, semb, we, be, wh, bh, wo, bo, q, h, part, b, s, d,
-                      a, residuals, splits, per, cuda_stream);
-}
-
-// The same in bf16 mode: the products' operands rounded to bf16.
-extern "C" int dz_iqn_head_bf16(const void* cos, const void* semb,
-                                const void* we, const void* be,
-                                const void* wh, const void* bh,
-                                const void* wo, const void* bo, void* q,
-                                void* h, void* part, int b, int s, int d,
-                                int a, int residuals, int splits, int per,
-                                void* cuda_stream) {
-  return entry<true>(cos, semb, we, be, wh, bh, wo, bo, q, h, part, b, s, d,
-                     a, residuals, splits, per, cuda_stream);
+  cudaStream_t st = (cudaStream_t)cuda_stream;
+  if (b * s <= 0) return (int)cudaGetLastError();
+  if (splits < 1 || per < 1 || (splits - 1) * per >= d / kKC ||
+      splits * per < d / kKC || (splits > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return (int)(residuals
+                   ? launch<true>(cos, semb, we, be, wh, bh, wo, bo, q, h,
+                                  part, b, s, d, a, splits, per, st)
+                   : launch<false>(cos, semb, we, be, wh, bh, wo, bo, q, h,
+                                   part, b, s, d, a, splits, per, st));
 }

@@ -591,7 +591,7 @@ iqn_head_bwd_d_kernel(const float* __restrict__ cosx,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           uint32_t bb[2], bs[2];
-          load_b<false>(bb, bs, bp + 8 * ks * kWeS + 8 * j, kWeS);
+          load_b(bb, bs, bp + 8 * ks * kWeS + 8 * j, kWeS);
           mma_3xtf32(tp[j], ab, as, bb, bs);
         }
       }

@@ -7,18 +7,10 @@
 // f32, which keeps a product within f32 rounding. The tensor cores add in f32
 // with truncation, so a long sum folds each k-step's three products into the
 // accumulator with an f32 add that rounds to nearest (`mma_3xtf32_rn`).
-//
-// bf16 mode (the reference's `mm = bfloat16`): the `*_op<kBf16>` helpers
-// below take a kernel's product operands either as 3xTF32 splits (kBf16
-// false) or rounded to bf16, to nearest even as XLA's convert rounds, with
-// no small part (kBf16 true). A bf16 value is exact in TF32, so then one
-// TF32 mma of the rounded operands gives exact products accumulated in f32:
-// the reference's bf16-operand product with f32 accumulation, in one pass.
 
 #pragma once
 
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -98,48 +90,6 @@ __device__ __forceinline__ void mma_3xtf32_rn(float* c, const uint32_t* ab,
   c[3] += p[3];
 }
 
-// x rounded to bf16 (8 significant bits), to nearest even, as a float.
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// A product operand: split into TF32 parts, or rounded to bf16 (small 0).
-template <bool kBf16>
-__device__ __forceinline__ void split_op(float x, uint32_t& big,
-                                         uint32_t& small) {
-  if constexpr (kBf16) {
-    big = __float_as_uint(round_bf16(x));
-    small = 0u;
-  } else {
-    split_tf32(x, big, small);
-  }
-}
-
-// c += a @ b: three TF32 products (3xTF32), or one of the bf16 values.
-template <bool kBf16>
-__device__ __forceinline__ void mma_op(float* c, const uint32_t* ab,
-                                       const uint32_t* as, const uint32_t* bb,
-                                       const uint32_t* bs) {
-  if constexpr (kBf16)
-    mma_tf32(c, ab, bb);
-  else
-    mma_3xtf32(c, ab, as, bb, bs);
-}
-
-// mma_op into a zeroed tile, then added to c in f32 rounding to nearest.
-template <bool kBf16>
-__device__ __forceinline__ void mma_op_rn(float* c, const uint32_t* ab,
-                                          const uint32_t* as,
-                                          const uint32_t* bb,
-                                          const uint32_t* bs) {
-  float p[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_op<kBf16>(p, ab, as, bb, bs);
-  c[0] += p[0];
-  c[1] += p[1];
-  c[2] += p[2];
-  c[3] += p[3];
-}
-
 // A tiles stored in the mma's fragment order (K4a's cosine tile and hi
 // chunks: 64 rows x ksteps * 8 columns): for row tile i and k-step ks, lane
 // (g, t) finds its four values a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
@@ -164,21 +114,19 @@ __device__ __forceinline__ void load_a(uint32_t* f, const float* tile,
 
 // The split B fragment at column n, k-step ks, of a row-major (k, n) tile:
 // b0 (k = t, n = g), b1 (k = t + 4, n = g); `p` points at (8 ks + t, n).
-template <bool kBf16>
 __device__ __forceinline__ void load_b(uint32_t* bb, uint32_t* bs,
                                        const float* p, int stride) {
-  split_op<kBf16>(p[0], bb[0], bs[0]);
-  split_op<kBf16>(p[4 * stride], bb[1], bs[1]);
+  split_tf32(p[0], bb[0], bs[0]);
+  split_tf32(p[4 * stride], bb[1], bs[1]);
 }
 
-// Stores x's split parts, or x rounded to bf16 alone (`small` untouched).
-template <bool kBf16>
+// Stores x's split parts.
 __device__ __forceinline__ void store_split(float* big, float* small, int i,
                                             float x) {
   uint32_t b, s;
-  split_op<kBf16>(x, b, s);
+  split_tf32(x, b, s);
   big[i] = __uint_as_float(b);
-  if constexpr (!kBf16) small[i] = __uint_as_float(s);
+  small[i] = __uint_as_float(s);
 }
 
 }  // namespace

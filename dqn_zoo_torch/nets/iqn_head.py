@@ -45,10 +45,12 @@ the products accumulate in f32; the stream broadcast, h as stored, ds_emb,
 dbe, dbh and the wo-layer gradients stay f32. The gradients are then the
 reference's custom VJP, not autograd through the casts: `_IqnHead` is taken
 on both devices, with the plain functions on the CPU and K4a, K4b and K4c
-in their bf16 mode (registered apart, `*_bf16`) on the card. K4a's bf16
-mode is its f32 source with the operands rounded in registers; K4b's and
-K4c's are kernels of their own (csrc/iqn_head_bwd_bf16.cu) on bf16 tensor
-cores, reading bf16 copies of dh, cos, we and wh that one staging pass
+in their bf16 mode (registered apart, `*_bf16`) on the card. Each is a
+kernel of its own on bf16 tensor cores (`wgmma`): K4a's in
+csrc/iqn_head_bf16.cu, reading the weights as one staging pass
+(`iqn_head_stage_fwd_bf16`) lays them out for its shared-memory stages,
+rounded once a launch; K4b's and K4c's in csrc/iqn_head_bwd_bf16.cu,
+reading bf16 copies of dh, cos, we and wh that one staging pass
 (`iqn_head_stage_bf16`, which also sums dbh) writes for both.
 """
 
@@ -72,6 +74,14 @@ BF16_TILE_D = 128
 BF16_TILE_H = 256
 BF16_CHUNK = 64
 BF16_MAX_GROUPS = 16
+# K4a's bf16 kernel (csrc/iqn_head_bf16.cu): rows a block owns (kM; it owns
+# BF16_TILE_H columns of H), rows of D a chunk (kKC), and the bytes of one
+# chunk of the staged weights (kChunkB: wh's two column halves and we^T in
+# bf16, be in f32).
+BF16_FWD_ROWS = 128
+BF16_FWD_CHUNK = 64
+BF16_FWD_CHUNK_BYTES = (2 * BF16_FWD_CHUNK * BF16_TILE_H * 2
+                        + BF16_FWD_CHUNK * LATENT * 2 + BF16_FWD_CHUNK * 4)
 
 _ARGS = [kernels.P] * 11 + [kernels.I] * 7 + [kernels.P]
 FWD = kernels.register(kernels.Kernel(
@@ -84,11 +94,18 @@ BWD_W = kernels.register(kernels.Kernel(
 BWD_D = kernels.register(kernels.Kernel(
     "iqn_head_bwd_d", "iqn_head_bwd.cu", "dz_iqn_head_bwd_d",
     [kernels.P] * 12 + [kernels.I] * 4 + [kernels.P]))
-# The same kernels with their product operands rounded to bf16 (mm=bf16).
+# K4a with its product operands rounded to bf16 (mm=bf16): a kernel of its
+# own (csrc/iqn_head_bf16.cu) on the weights its staging pass lays out.
+_ARGS_BF16 = [kernels.P] * 10 + [kernels.I] * 7 + [kernels.P]
 FWD_BF16 = kernels.register(kernels.Kernel(
-    "iqn_head_fwd_bf16", "iqn_head.cu", "dz_iqn_head_bf16", _ARGS))
+    "iqn_head_fwd_bf16", "iqn_head_bf16.cu", "dz_iqn_head_fwd_bf16",
+    _ARGS_BF16))
 FWD_RES_BF16 = kernels.register(kernels.Kernel(
-    "iqn_head_fwd_residuals_bf16", "iqn_head.cu", "dz_iqn_head_bf16", _ARGS))
+    "iqn_head_fwd_residuals_bf16", "iqn_head_bf16.cu", "dz_iqn_head_fwd_bf16",
+    _ARGS_BF16))
+STAGE_FWD_BF16 = kernels.register(kernels.Kernel(
+    "iqn_head_stage_fwd_bf16", "iqn_head_bf16.cu",
+    "dz_iqn_head_stage_fwd_bf16", [kernels.P] * 4 + [kernels.I, kernels.P]))
 # K4b and K4c in bf16 mode are kernels of their own (csrc/iqn_head_bwd_bf16.cu),
 # fed by a staging pass that rounds their operands to bf16 once.
 STAGE_BF16 = kernels.register(kernels.Kernel(
@@ -168,11 +185,11 @@ def _check_tensors(tensors, shapes) -> None:
     if not t.is_contiguous() or t.data_ptr() % 16:
       raise ValueError(f"iqn_head {name}: need a contiguous, 16-byte "
                        "aligned tensor.")
-  dev = tensors["cos_emb"].device
+  first, dev = next((n, t.device) for n, t in tensors.items())
   for name, t in tensors.items():
     if t.device != dev or dev.type != "cuda":
       raise ValueError(f"iqn_head {name}: every tensor must lie on one CUDA "
-                       f"device; got {t.device} beside cos_emb on {dev}.")
+                       f"device; got {t.device} beside {first} on {dev}.")
 
 
 def _check(we, be, wh, bh, wo, bo, cos_emb, s_emb) -> None:
@@ -220,27 +237,109 @@ def chunks_per_split(splits: int, d: int = 3136) -> int:
   return -(-(d // D_MULTIPLE) // splits)
 
 
+def bf16_fwd_splits(b: int, s: int, d: int = 3136) -> int:
+  """Runs of whole 64-row chunks of D that K4a's bf16 kernel cuts D into,
+  beside its blocks of 128 rows x one half of H, as `d_splits` does for the
+  f32 kernel: 1 where the blocks alone number more than 66 (128 at the act
+  shape B = 128, 1,024 and 2,048 at the learn shapes); else as many as keep
+  blocks x splits within 132 (25 at B = 4, S = 64; 49 at B = 3, S = 24)."""
+  tiles = -(-b * s // BF16_FWD_ROWS) * (HIDDEN // BF16_TILE_H)
+  chunks = -(-d // BF16_FWD_CHUNK)
+  per = -(-chunks // max(1, SMS // tiles))
+  return -(-chunks // per)
+
+
+def bf16_fwd_chunks_per_split(splits: int, d: int = 3136) -> int:
+  """64-row chunks each split walks; the last may walk fewer, none none."""
+  return -(-(-(-d // BF16_FWD_CHUNK)) // splits)
+
+
+def _swizzled(x):
+  """x (..., rows, 8 pieces, 8 values) with piece p of row r moved to
+  p ^ (r & 7): the 128-byte swizzle of the kernels' shared-memory tiles."""
+  r = torch.arange(x.shape[-3], device=x.device)
+  p = torch.arange(8, device=x.device)
+  return x[..., r[:, None], p[None, :] ^ (r[:, None] & 7), :]
+
+
+def iqn_head_stage_fwd_bf16_plain(we, be, wh) -> torch.Tensor:
+  """The plain version of K4a's bf16 staging pass: (ceil(D / 64),
+  BF16_FWD_CHUNK_BYTES) bytes, chunk c holding rows 64 c .. 64 c + 63 of D
+  as the kernel's stage does: wh rounded to bf16 as [half][block of 64
+  columns][row][128 bytes], we^T (D, latent) rounded to bf16 as [row][128
+  bytes], both swizzled, then be in f32; rows past D zero."""
+  d, bf, c = wh.shape[0], torch.bfloat16, -(-wh.shape[0] // BF16_FWD_CHUNK)
+  whp = torch.zeros((c * BF16_FWD_CHUNK, HIDDEN), dtype=bf, device=wh.device)
+  whp[:d] = wh.to(bf)
+  # (chunk, row, half, block, piece, value) -> [chunk][half][block][row]...
+  wh_img = _swizzled(whp.view(c, BF16_FWD_CHUNK, 2, 4, 8, 8)
+                     .permute(0, 2, 3, 1, 4, 5))
+  wet = torch.zeros((c * BF16_FWD_CHUNK, LATENT), dtype=bf, device=we.device)
+  wet[:d] = we.t().to(bf)
+  we_img = _swizzled(wet.view(c, BF16_FWD_CHUNK, 8, 8))
+  bep = torch.zeros((c * BF16_FWD_CHUNK,), dtype=torch.float32,
+                    device=be.device)
+  bep[:d] = be
+  return torch.cat([t.reshape(c, -1).view(torch.uint8)
+                    for t in (wh_img, we_img, bep)], dim=1)
+
+
+def iqn_head_stage_fwd_bf16(we, be, wh) -> torch.Tensor:
+  """Launches K4a's bf16 staging pass (the layout of
+  iqn_head_stage_fwd_bf16_plain). CPU tensors take the plain version."""
+  if we.device.type == "cpu":
+    return iqn_head_stage_fwd_bf16_plain(we, be, wh)
+  d = wh.shape[0]
+  if d % D_MULTIPLE or d < 1:
+    raise ValueError(f"iqn_head: D must be a positive multiple of "
+                     f"{D_MULTIPLE}; got {d}.")
+  _check_tensors({"we": we, "be": be, "wh": wh},
+                 {"we": (LATENT, d), "be": (d,), "wh": (d, HIDDEN)})
+  img = torch.empty((-(-d // BF16_FWD_CHUNK), BF16_FWD_CHUNK_BYTES),
+                    dtype=torch.uint8, device=we.device)
+  STAGE_FWD_BF16.launch(we.data_ptr(), be.data_ptr(), wh.data_ptr(),
+                        img.data_ptr(), d, kernels.stream_ptr(we.device))
+  return img
+
+
 def iqn_head_forward(we, be, wh, bh, wo, bo, cos_emb, s_emb,
-                     residuals: bool, mm=None):
-  """Launches K4a (in its bf16 mode for mm=bf16): returns q (B, S, A), or
+                     residuals: bool, mm=None, staged=None):
+  """Launches K4a (its bf16 kernel for mm=bf16): returns q (B, S, A), or
   (q, h (B·S, H)) with residuals.
   Takes no gradient: the tensors' autograd history is not followed. With
   `d_splits` > 1 the blocks' partials of hi @ wh go through a scratch
-  buffer of (splits, B·S, H) floats."""
+  buffer of (splits, B·S, H) floats. For mm=bf16 the kernel reads the
+  weights as `staged` (iqn_head_stage_fwd_bf16's result for these we, be
+  and wh; staged here when None) and, with one split, adds the halves of q
+  of its two column halves through a (2, B·S, A) scratch."""
   _check(we, be, wh, bh, wo, bo, cos_emb, s_emb)
   b, s, _ = cos_emb.shape
   d, a = s_emb.shape[1], wo.shape[1]
   dev = cos_emb.device
-  q = torch.empty((b, s, a), dtype=torch.float32, device=dev)
-  h = torch.empty((b * s, HIDDEN), dtype=torch.float32,
-                  device=dev) if residuals else None
-  splits = d_splits(b, s, d)
-  part = torch.empty((splits, b * s, HIDDEN), dtype=torch.float32,
-                     device=dev) if splits > 1 else None
-  if matmul_dtype(mm) is None:
-    kernel = FWD_RES if residuals else FWD
-  else:
+  new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+  q = new(b, s, a)
+  h = new(b * s, HIDDEN) if residuals else None
+  if matmul_dtype(mm) is not None:
+    img = iqn_head_stage_fwd_bf16(we, be, wh) if staged is None else staged
+    if tuple(img.shape) != (-(-d // BF16_FWD_CHUNK), BF16_FWD_CHUNK_BYTES) \
+        or img.dtype != torch.uint8 or img.device != dev or \
+        not img.is_contiguous():
+      raise ValueError("iqn_head: `staged` is not the staging of these "
+                       "weights.")
+    splits = bf16_fwd_splits(b, s, d)
+    part = new(splits, b * s, HIDDEN) if splits > 1 else None
+    qpart = new(2, b * s, a) if splits == 1 else None
     kernel = FWD_RES_BF16 if residuals else FWD_BF16
+    kernel.launch(cos_emb.data_ptr(), s_emb.data_ptr(), img.data_ptr(),
+                  bh.data_ptr(), wo.data_ptr(), bo.data_ptr(), q.data_ptr(),
+                  _ptr(h), _ptr(part), _ptr(qpart), b, s, d, a,
+                  int(residuals), splits,
+                  bf16_fwd_chunks_per_split(splits, d),
+                  kernels.stream_ptr(dev))
+    return (q, h) if residuals else q
+  splits = d_splits(b, s, d)
+  part = new(splits, b * s, HIDDEN) if splits > 1 else None
+  kernel = FWD_RES if residuals else FWD
   kernel.launch(cos_emb.data_ptr(), s_emb.data_ptr(), we.data_ptr(),
                 be.data_ptr(), wh.data_ptr(), bh.data_ptr(), wo.data_ptr(),
                 bo.data_ptr(), q.data_ptr(), _ptr(h), _ptr(part), b, s, d, a,
@@ -579,6 +678,14 @@ def bound_counts_bwd_d(b: int, s: int, need_dcos: bool, d: int = 3136):
     floats += rows * LATENT
     products += LATENT * d
   return 4 * floats, 2 * rows * products
+
+
+def bound_counts_stage_fwd_bf16(d: int = 3136):
+  """(bytes, flops) K4a's bf16 staging pass must move and do: we, be and wh
+  read once in f32, their staged image written once (bf16 we and wh, f32
+  be); no arithmetic but the rounding."""
+  elems = LATENT * d + d * HIDDEN
+  return 4 * (elems + d) + 2 * elems + 4 * d, 0
 
 
 def bound_counts_stage_bf16(b: int, s: int, d: int = 3136):

@@ -457,23 +457,32 @@ def test_k4_function_skips_dcos_when_the_features_want_no_gradient(dev):
 BF16 = torch.bfloat16
 
 
-@pytest.mark.parametrize("b,s,residuals", [(128, 64, False),
-                                            (1024, 64, True),
-                                            (1024, 128, False),
-                                            (4, 64, False)],
-                         ids=["act", "learn_online", "learn_target", "eval"])
-def test_k4a_bf16_matches_plain(dev, b, s, residuals):
-  args = _head_inputs(dev, b, s, 6, 23)
+# The iqn path's shapes, eval (D split over blocks), an 18-action act shape
+# and a ragged one (72 rows in a block of 128, streams of 24 rows that
+# straddle the warpgroups' rows, A = 18: the q epilogue's tiles ragged).
+@pytest.mark.parametrize("b,s,a,residuals", [(128, 64, 6, False),
+                                              (1024, 64, 6, True),
+                                              (1024, 128, 6, False),
+                                              (4, 64, 6, False),
+                                              (128, 64, 18, True),
+                                              (3, 24, 18, True)],
+                         ids=["act", "learn_online", "learn_target", "eval",
+                              "act_a18", "ragged"])
+def test_k4a_bf16_matches_plain(dev, b, s, a, residuals):
+  args = _head_inputs(dev, b, s, a, 23)
   kernel = iqn_head.FWD_RES_BF16 if residuals else iqn_head.FWD_BF16
-  before = [k.launches for k in (kernel, iqn_head.FWD, iqn_head.FWD_RES)]
+  counters = (kernel, iqn_head.STAGE_FWD_BF16, iqn_head.FWD,
+              iqn_head.FWD_RES)
+  before = [k.launches for k in counters]
   with torch.no_grad():
     got = iqn_head.iqn_head_forward(*args, residuals=residuals, mm=BF16)
     again = iqn_head.iqn_head_forward(*args, residuals=residuals, mm=BF16)
     want_q, want_h = iqn_head.iqn_head_plain_residuals(*args, mm=BF16)
     f32_q = iqn_head.iqn_head_plain(*args)
   torch.cuda.synchronize()
-  assert [k.launches for k in (kernel, iqn_head.FWD, iqn_head.FWD_RES)] == \
-      [before[0] + 2] + before[1:]
+  # Each call stages the weights once and launches the kernel once.
+  assert [k.launches for k in counters] == \
+      [before[0] + 2, before[1] + 2] + before[2:]
   got, again = ((got, again) if residuals else ((got,), (again,)))
   assert all(torch.equal(u, v) for u, v in zip(got, again))
   assert _rel(got[0], want_q) <= 5e-4
@@ -484,6 +493,31 @@ def test_k4a_bf16_matches_plain(dev, b, s, residuals):
     r = lambda t: t.to(BF16).float()
     q_from_h = (r(got[1]) @ r(wo) + bo).reshape(b, s, -1)
     assert _rel(got[0], q_from_h) <= 1e-5
+
+
+@pytest.mark.parametrize("d", [3136, 96], ids=["d3136", "d96"])
+def test_k4a_bf16_staging_matches_plain(dev, d):
+  """K4a's staging pass writes the plain version's bytes bit for bit, also
+  with ties, ±0, subnormals, ±inf and the largest float planted in we, be
+  and wh, and at a D of 32 rows past a whole chunk (the last chunk's rows
+  past D zero); one launch a call."""
+  n = lambda *shape: torch.randn(shape, generator=_gen(30), device=dev)
+  we, be, wh = n(64, d) * 0.05, n(d) * 0.05, n(d, 512) * 0.015
+  bits = torch.from_numpy(np.array(
+      [0x3F808000, 0x3F818000, 0x80000000, 0x00000001, 0x807FFFFF,
+       0x7F800000, 0xFF800000, 0x7F7FFFFF], dtype=np.uint32).view(
+           np.float32)).to(dev)
+  we[0, :8], we[-1, -8:] = bits, -bits
+  wh[0, :8], wh[-1, -8:] = bits, -bits
+  be[:8] = bits
+  before = iqn_head.STAGE_FWD_BF16.launches
+  got = iqn_head.iqn_head_stage_fwd_bf16(we, be, wh)
+  again = iqn_head.iqn_head_stage_fwd_bf16(we, be, wh)
+  torch.cuda.synchronize()
+  assert iqn_head.STAGE_FWD_BF16.launches == before + 2
+  want = iqn_head.iqn_head_stage_fwd_bf16_plain(we, be, wh)
+  assert got.dtype == torch.uint8 and tuple(got.shape) == tuple(want.shape)
+  assert torch.equal(got, want) and torch.equal(got, again)
 
 
 # (1024, 64): the learn shape (5 row groups of K4b, 10 of K4c); (128, 64):
@@ -568,7 +602,8 @@ def test_k4_bf16_function_matches_the_cpu(dev):
   args = _head_inputs(dev, b, s, a, 26)
   dq = torch.randn((b, s, a), generator=_gen(27), device=dev)
   counters = (iqn_head.FWD_RES_BF16, iqn_head.BWD_W_BF16,
-              iqn_head.BWD_D_BF16, iqn_head.STAGE_BF16)
+              iqn_head.BWD_D_BF16, iqn_head.STAGE_BF16,
+              iqn_head.STAGE_FWD_BF16)
   before = [k.launches for k in counters]
   outs = {}
   for d in (dev, "cpu"):
@@ -653,7 +688,7 @@ def test_every_kernel_builds(dev):
   sources = {k.source for k in kernels.REGISTRY.values()}
   assert sources == {"window_gather.cu", "pooled_frame_to_84.cu",
                      "dqn_torso.cu", "iqn_head.cu", "iqn_head_bwd.cu",
-                     "iqn_head_bwd_bf16.cu"}
+                     "iqn_head_bwd_bf16.cu", "iqn_head_bf16.cu"}
   assert sources == {p.name for p in kernels.CSRC.glob("*.cu")}
   for k in kernels.REGISTRY.values():
     assert k._func() is not None

@@ -1,8 +1,9 @@
 """What the CPU can check of the K4a, K4b, K4c, K3, K2 and K1 kernels'
 plans: the split of D over blocks, that 3xTF32 products fit K4a's, K4b's
-and K4c's tolerances at the real widths, K3's index maps, K2's bands and its
-band-split algorithm against the plain version, and K1's index handling at
-int64 against the JAX package.
+and K4c's tolerances at the real widths, the bf16 kernels' grids, writes,
+staged layouts and long sums read from their sources, K3's index maps,
+K2's bands and its band-split algorithm against the plain version, and
+K1's index handling at int64 against the JAX package.
 
 The kernels themselves run only on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
@@ -945,3 +946,224 @@ def test_staging_plain_rounds_as_jax_and_sums_dbh():
   np.testing.assert_allclose(got.dbh.numpy(), want_dbh, rtol=1e-5,
                              atol=1e-6 * np.abs(want_dbh).max())
   assert iqn_head.iqn_head_stage_bf16(t["we"], t["cos"], t["dh"]).wh is None
+
+
+# --- K4a in bf16 mode: its plan, read from its source ------------------------
+
+FWD_BF16_CU = pathlib.Path(iqn_head.__file__).parent.parent / \
+    "csrc/iqn_head_bf16.cu"
+# (B, S, A): the target and online shapes of the learn step, the act shape,
+# eval (D split over blocks) and a ragged one (72 rows in a block of 128,
+# streams of 24 rows, A = 18).
+FWD_BF16_SHAPES = [(1024, 128, 6), (1024, 64, 6), (128, 64, 6), (4, 64, 6),
+                   (3, 24, 18)]
+
+
+def _fwd_bf16_consts():
+  """csrc/iqn_head_bf16.cu's `constexpr int` constants, evaluated in their
+  order (integer division as C's, all operands positive)."""
+  consts = {}
+  for name, expr in re.findall(r"constexpr int (\w+)\s*=\s*([^;]+);",
+                               FWD_BF16_CU.read_text()):
+    consts[name] = eval(" ".join(expr.split()).replace("/", "//"), {},
+                        dict(consts))
+  return consts
+
+
+def test_k4a_bf16_tiles_and_limits_are_the_sources():
+  """The wrapper's constants are the source's; a block takes at most the
+  H100's 232,448 bytes of shared memory; the ring's stages and the wgmma
+  tiles in them start on 1024-byte boundaries (the 128-byte swizzle's
+  atoms), and the staged image of a chunk is the stage's bytes."""
+  c = _fwd_bf16_consts()
+  assert (c["kM"], c["kBH"], c["kKC"], c["kChunkB"], c["kL"], c["kH"]) == (
+      iqn_head.BF16_FWD_ROWS, iqn_head.BF16_TILE_H, iqn_head.BF16_FWD_CHUNK,
+      iqn_head.BF16_FWD_CHUNK_BYTES, iqn_head.LATENT, iqn_head.HIDDEN)
+  assert c["kThreads"] == 256 and c["kM"] == 2 * 64  # a warpgroup's 64 rows
+  assert c["kSmem"] <= 232448
+  # 1 KB to align, the cosine tile, the stages, the epilogue's wo and bh
+  # halves, an mbarrier a stage.
+  assert c["kSmem"] == 1024 + c["kCosB"] + c["kStages"] * c["kStageB"] + \
+      c["kWoB"] + c["kBhB"] + 8 * c["kStages"]
+  assert (c["kWoB"] + c["kBhB"]) % 8 == 0  # the mbarriers' alignment
+  # The epilogue's B fragment loads (output 8 nt + g, columns 2 t ..) fall
+  # on 32 distinct banks.
+  g, t = np.meshgrid(np.arange(8), np.arange(4), indexing="ij")
+  assert len(set(((g * c["kWoS"] * 2 + 4 * t) // 4 % 32).ravel())) == 32
+  assert c["kStageB"] % 1024 == 0 and c["kCosB"] % 1024 == 0
+  assert c["kWhHalfB"] % 1024 == 0  # we^T follows the wh half
+  assert c["kWhHalfB"] + c["kWeB"] + c["kBeB"] + 2 * c["kSembB"] <= \
+      c["kStageB"]
+  # One chunk: wh's two column halves (4 blocks of 64 columns x 64 rows of
+  # 128 bytes each), we^T (64 rows of 128 bytes) and be, 16-byte multiples
+  # for the bulk copies.
+  assert c["kWhHalfB"] == 4 * c["kKC"] * 128 and c["kWeB"] == c["kKC"] * 128
+  assert c["kChunkB"] == 2 * c["kWhHalfB"] + c["kWeB"] + c["kBeB"]
+  assert all(c[k] % 16 == 0 for k in ("kWhHalfB", "kWeB", "kBeB", "kSembB",
+                                      "kChunkB"))
+
+
+def _fwd_bf16_lanes():
+  """(row, column) in a block's 128 x 256 tile of every accumulator (j, e)
+  of every lane (g, t) of every warp: warpgroup wg = warp / 4 takes rows
+  64 wg .., warp wl = warp % 4 of it rows 16 wl + g (+ 8), column 8 j + 2 t
+  (+ 1) (wgmma m64n256's accumulator layout, the kernel's r_a, r_b, col0)."""
+  warp, g, t, j, e = np.meshgrid(np.arange(8), np.arange(8), np.arange(4),
+                                 np.arange(32), np.arange(4), indexing="ij")
+  rows = 64 * (warp >> 2) + 16 * (warp & 3) + g + 8 * (e >> 1)
+  return rows.ravel(), (8 * j + 2 * t + (e & 1)).ravel()
+
+
+def _fwd_bf16_q_lanes(a, kqt):
+  """(row, output) of every q value a block's epilogue writes: per pass of
+  kqt tiles of 8 outputs, lane (g, t)'s mma.sync C fragment of tile nt:
+  rows r_a, r_b, outputs o0 + 8 nt + 2 t (+ 1)."""
+  out = []
+  for o0 in range(0, a, 8 * kqt):
+    warp, g, t, nt, e = np.meshgrid(np.arange(8), np.arange(8), np.arange(4),
+                                    np.arange(kqt), np.arange(4),
+                                    indexing="ij")
+    rows = 64 * (warp >> 2) + 16 * (warp & 3) + g + 8 * (e >> 1)
+    outs = o0 + 8 * nt + 2 * t + (e & 1)
+    out.append((rows.ravel(), outs.ravel()))
+  return (np.concatenate([r for r, _ in out]),
+          np.concatenate([o for _, o in out]))
+
+
+@pytest.mark.parametrize("b,s,a", FWD_BF16_SHAPES)
+def test_k4a_bf16_writes_every_output_once(b, s, a):
+  """Over the grid (row tiles of 128, 2 halves of H, splits), every chunk
+  of D is walked by one split, and every element of h (or of each split's
+  partial of h_pre) and of each half's partial of q is written by exactly
+  one lane of one block; the second kernel then writes each row of h and q
+  once (one block a row, 4 columns a thread: q_halves one element a
+  thread)."""
+  c = _fwd_bf16_consts()
+  rows = b * s
+  tiles = -(-rows // c["kM"])
+  halves = c["kH"] // c["kBH"]
+  splits = iqn_head.bf16_fwd_splits(b, s, D)
+  per = iqn_head.bf16_fwd_chunks_per_split(splits, D)
+  nchunks = -(-D // c["kKC"])
+  runs = [range(z * per, min((z + 1) * per, nchunks)) for z in range(splits)]
+  assert all(len(r) > 0 for r in runs)
+  assert [k for r in runs for k in r] == list(range(nchunks))
+  lr, lc = _fwd_bf16_lanes()
+  h = np.zeros((rows, c["kH"]), np.int64)
+  for x in range(tiles):
+    for y in range(halves):
+      r, col = x * c["kM"] + lr, y * c["kBH"] + lc
+      keep = r < rows
+      np.add.at(h, (r[keep], col[keep]), 1)
+  # One split: h itself; more: each split's raw partial, the same pattern.
+  assert (h == 1).all()
+  if splits == 1:
+    qr, qo = _fwd_bf16_q_lanes(a, c["kQT"])
+    qp = np.zeros((halves, rows, a), np.int64)
+    for x in range(tiles):
+      for y in range(halves):
+        r = x * c["kM"] + qr
+        keep = (r < rows) & (qo < a)
+        np.add.at(qp[y], (r[keep], qo[keep]), 1)
+    assert (qp == 1).all()
+  else:
+    assert c["kFinThreads"] * 4 == c["kH"]
+
+
+def test_k4a_bf16_grids_fill_the_card_and_eval_still_splits():
+  """The learn shapes give every one of the 132 SMs a block with little
+  lost to the last wave (2,048 and 1,024 blocks); the act shape's 64 row
+  tiles x 2 halves are 128 blocks, one wave on 128 of the 132 SMs, where a
+  split of D would double the blocks and add a partials pass for 4 SMs;
+  eval (B = 4) and the ragged shape split D to 100 and 98 blocks."""
+  def blocks(b, s):
+    tiles = -(-b * s // iqn_head.BF16_FWD_ROWS) * (
+        iqn_head.HIDDEN // iqn_head.BF16_TILE_H)
+    return tiles * iqn_head.bf16_fwd_splits(b, s, D)
+  for b, s in ((1024, 128), (1024, 64)):
+    n = blocks(b, s)
+    assert iqn_head.bf16_fwd_splits(b, s, D) == 1 and n >= iqn_head.SMS
+    assert n / (-(-n // iqn_head.SMS) * iqn_head.SMS) > 0.9
+  assert iqn_head.bf16_fwd_splits(128, 64, D) == 1 and blocks(128, 64) == 128
+  for b, s in ((4, 64), (3, 24)):
+    assert iqn_head.bf16_fwd_splits(b, s, D) > 1
+    assert 0.7 * iqn_head.SMS <= blocks(b, s) <= iqn_head.SMS
+  assert (blocks(4, 64), blocks(3, 24)) == (100, 98)
+
+
+def _unstage_fwd(img, d):
+  """The bf16 bits of wh (D, 512) and we^T (D, 64) and the f32 be (D) a
+  staged image holds (iqn_head_stage_fwd_bf16's layout undone), and
+  whether its rows past D are zero."""
+  c = img.shape[0]
+  r = np.arange(64)[:, None]
+  unswz = np.arange(8)[None, :] ^ (r & 7)  # position of logical piece p
+  wh = img[:, :65536].copy().view(np.uint16).reshape(c, 2, 4, 64, 8, 8)
+  wh = np.take_along_axis(wh, np.broadcast_to(
+      unswz[None, None, None, :, :, None], wh.shape), axis=4)
+  wh = wh.transpose(0, 3, 1, 2, 4, 5).reshape(c * 64, 512)
+  wet = img[:, 65536:73728].copy().view(np.uint16).reshape(c, 64, 8, 8)
+  wet = np.take_along_axis(wet, np.broadcast_to(
+      unswz[None, :, :, None], wet.shape), axis=2).reshape(c * 64, 64)
+  be = img[:, 73728:].copy().view(np.float32).reshape(-1)
+  pad_zero = not (wh[d:].any() or wet[d:].any() or be[d:].any())
+  return wh[:d], wet[:d], be[:d], pad_zero
+
+
+@pytest.mark.parametrize("d", [D, 96])
+def test_k4a_staging_plain_rounds_as_jax(d):
+  """K4a's staging pass's plain version: its bf16 wh and we^T equal JAX's
+  astype(bfloat16) bit for bit (ties to even, ±0, subnormals, ±inf and
+  overflow planted), be is kept in f32 as it is, in the layout the kernel's
+  stages read (undone here), the rows past D zero; the wrapper takes it for
+  CPU tensors."""
+  rng = np.random.RandomState(7)
+  special = np.array([0x3F808000, 0x3F818000, 0x3F80FFFF, 0x3F808001,
+                      0x80000000, 0x00000000, 0x00000001, 0x807FFFFF,
+                      0x00008000, 0x00018000, 0x7F800000, 0xFF800000,
+                      0x7F7FFFFF, 0x7F7F7FFF, 0xBF808000, 0x80018000],
+                     dtype=np.uint32).view(np.float32)
+  we = (rng.randn(64, d) * 0.05).astype(np.float32)
+  be = (rng.randn(d) * 0.05).astype(np.float32)
+  wh = (rng.randn(d, 512) * 0.015).astype(np.float32)
+  for x in (we, be, wh):
+    x.reshape(-1)[:16] = special
+    x.reshape(-1)[-16:] = -special
+  img = iqn_head.iqn_head_stage_fwd_bf16(*(torch.from_numpy(x)
+                                           for x in (we, be, wh)))
+  assert img.dtype == torch.uint8
+  assert tuple(img.shape) == (-(-d // 64), iqn_head.BF16_FWD_CHUNK_BYTES)
+  got_wh, got_wet, got_be, pad_zero = _unstage_fwd(img.numpy(), d)
+  bits = lambda x: np.asarray(jnp.asarray(x).astype(jnp.bfloat16)).view(
+      np.uint16)
+  np.testing.assert_array_equal(got_wh, bits(wh))
+  np.testing.assert_array_equal(got_wet, bits(we.T))
+  np.testing.assert_array_equal(got_be.view(np.uint32), be.view(np.uint32))
+  assert pad_zero
+
+
+def test_k4a_bf16_hi_wh_sum_fits_the_h_check_without_a_fold():
+  """K4a's bf16 h_pre = hi @ wh emulated in the kernel's k order over all
+  of D (196 k-steps of 16, each step's exact bf16 products added to the
+  f32 accumulator with the tensor cores' truncation, no rounding fold: the
+  source has none), after te_pre's 4 k-steps over latent 64 taken the same
+  way: h = relu(h_pre + bh) stays within a tenth of the card check's 1e-4
+  relative Frobenius error against float64 sums of the same bf16 operands
+  (printed with pytest -s), for 128 rows of one stream each half and 64
+  columns of H."""
+  assert "kFold" not in FWD_BF16_CU.read_text()
+  rng = np.random.RandomState(8)
+  n = lambda *shape: torch.from_numpy(rng.randn(*shape).astype(np.float32))
+  rows, hc = 128, 64
+  we, be, wh = n(64, D) * 0.05, n(D) * 0.05, n(D, hc) * 0.015
+  bh = n(hc) * 0.05
+  cos = n(rows, 64)
+  s_rows = torch.relu(n(2, D)).repeat_interleave(64, 0)
+  te_pre = _k_order_sum(_bf16(cos), _bf16(we))
+  hi = _bf16(torch.relu(te_pre + be) * s_rows)
+  h = torch.relu(_k_order_sum(hi, _bf16(wh)) + bh)
+  want = torch.relu(hi.double() @ _bf16(wh).double() + bh.double())
+  err = float(torch.linalg.vector_norm(h.double() - want)
+              / torch.linalg.vector_norm(want))
+  print(f"K4a bf16 h over D = {D}, no fold: relative Frobenius {err:.3e}")
+  assert err <= 1e-5

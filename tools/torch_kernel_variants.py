@@ -4,11 +4,13 @@ card.
   python tools/torch_kernel_variants.py [check ...] [--parent=PATH]
 
 (checks: mma_peak k3_parts k4a k4b k4b_parts k4c k4c_parts k4c_sass
-k4_bf16 k4_bf16_parts k2 k2_parent k1; all but k2_parent and k4_bf16 by
-default. --parent names another version of the sources, such as the parent
-commit's: the root of its checkout, or one source file, for k3_parts
-(csrc/dqn_torso.cu), k4_bf16 (csrc/iqn_head_bwd.cu), k2 and k2_parent
-(csrc/pooled_frame_to_84.cu) to time beside this one.)
+k4_bf16 k4_bf16_parts k4a_bf16 k4a_bf16_parts k2 k2_parent k1; all but
+k2_parent, k4_bf16 and k4a_bf16 by default. --parent names another version
+of the sources, such as the parent commit's: the root of its checkout, or
+one source file, for k3_parts (csrc/dqn_torso.cu), k4_bf16
+(csrc/iqn_head_bwd.cu), k2 and k2_parent (csrc/pooled_frame_to_84.cu) to
+time beside this one; k4a_bf16 takes the root of a checkout whose
+csrc/iqn_head.cu still has the TF32 kernel's bf16 mode.)
 
 Prints one JSON line per check, each time a device time from CUDA-graph
 replays (the host out of the way):
@@ -64,6 +66,25 @@ replays (the host out of the way):
             products, its loads; d_*: K4c's dhi, te_pre and dwe products,
             ds_emb, the dh copies, and all but dhi's products): where the
             time of each goes;
+  K4A_BF16  K4a in bf16 mode at the iqn path's three shapes (act B=128
+            S=64; online B=1024 S=64 with h; target B=1024 S=128; A=6):
+            this source's kernel (csrc/iqn_head_bf16.cu, on weights staged
+            once, and with its staging pass) against the --parent
+            checkout's bf16 mode of csrc/iqn_head.cu (f32 operands rounded
+            at each load, TF32 mma.sync), and the f32 K4a of both, in turns
+            (parent, this, this, parent), beside bf16 cuBLAS for the same
+            products (three addmm on operands cast beforehand); the staging
+            pass alone; and whether every f32 kernel of iqn_head.cu,
+            iqn_head_bwd.cu and dqn_torso.cu (their shared header
+            csrc/tf32_mma.cuh changed with this source) has the parent's
+            SASS (cuobjdump, addresses and encodings dropped) instruction
+            for instruction;
+  K4A_BF16_PARTS K4a's bf16 kernel at the act, online and target shapes
+            with one phase cut out at a time (te_pre's wgmma, forming hi,
+            forming's shared-memory loads, the main wgmma, the stage
+            refills, the q epilogue; te_pre with its loads alone, the main
+            wgmma with its loads alone): where its
+            time goes; and a ring of 3 stages in place of 4;
   K2        K2 (csrc/pooled_frame_to_84.cu) at B=128 (train; 8 rotated
             input sets, 206 MB, larger than the 50 MB L2) and B=4 (eval; 8
             sets of 0.8 MB, which stay in L2 as freshly rendered frames
@@ -134,12 +155,15 @@ extern "C" int run(void* out, int blocks, int iters, void* stream) {
 """
 
 
-def build(name: str, source: str) -> ctypes.CDLL:
+def build(name: str, source: str, include=None) -> ctypes.CDLL:
+  """Builds `source` as OUT/name.so; its quoted includes are found in
+  `include` (this tree's csrc by default)."""
   OUT.mkdir(parents=True, exist_ok=True)
   cu, so = OUT / f"{name}.cu", OUT / f"{name}.so"
   cu.write_text(source)
   done = subprocess.run([kernels.find_nvcc(), *kernels.NVCC_FLAGS, "-I",
-                         str(kernels.CSRC), "-o", str(so), str(cu)],
+                         str(include or kernels.CSRC), "-o", str(so),
+                         str(cu)],
                         capture_output=True, text=True)
   if done.returncode != 0:
     raise SystemExit(f"nvcc failed on {cu}:\n{done.stdout}{done.stderr}")
@@ -208,6 +232,8 @@ def k3_parts(dev, gen, parent=None) -> None:
   parent = parent_source(parent, "dqn_torso.cu")
   if parent:
     sources["parent"] = open(parent).read()
+  # Each source with its own csrc/tf32_mma.cuh.
+  include = dict(change=None, parent=parent and os.path.dirname(parent))
   libs = {}
   for who, src in sources.items():
     design = "tensor_cores" if "conv_layer<" in src else "cuda_cores"
@@ -220,7 +246,7 @@ def k3_parts(dev, gen, parent=None) -> None:
         if old not in cut:
           raise SystemExit(f"{who} {name}: {old!r} is not in the source")
         cut = cut.replace(old, new)
-      lib = build(f"dqn_torso_{who}_{name}", cut)
+      lib = build(f"dqn_torso_{who}_{name}", cut, include=include[who])
       lib.dz_dqn_torso.argtypes = torso_cuda._ARGS
       lib.dz_dqn_torso.restype = ctypes.c_int
       libs[who][name] = lib
@@ -250,12 +276,12 @@ def k3_parts(dev, gen, parent=None) -> None:
 
 def k4a(dev, gen) -> None:
   src = (kernels.CSRC / "iqn_head.cu").read_text()
-  fold = "mma_op_rn<kBf16>(acc[i][j]"
+  fold = "mma_3xtf32_rn(acc[i][j]"
   if fold not in src:
     raise SystemExit("iqn_head.cu no longer has the per-k-step fold")
   libs = {"kernel": build("iqn_head", src),
           "no_fold": build("iqn_head_no_fold",
-                           src.replace(fold, "mma_op<kBf16>(acc[i][j]"))}
+                           src.replace(fold, "mma_3xtf32(acc[i][j]"))}
   for lib in libs.values():
     lib.dz_iqn_head.argtypes = ih._ARGS
     lib.dz_iqn_head.restype = ctypes.c_int
@@ -437,9 +463,9 @@ def error_shares(got, want) -> dict:
 
 
 
-def bwd_build(name: str, src: str) -> ctypes.CDLL:
+def bwd_build(name: str, src: str, include=None) -> ctypes.CDLL:
   """A variant of iqn_head_bwd.cu, with K4b's and K4c's entries typed."""
-  lib = build(name, src)
+  lib = build(name, src, include=include)
   for kernel in (ih.BWD_W, ih.BWD_D):
     getattr(lib, kernel.symbol).argtypes = kernel.argtypes
     getattr(lib, kernel.symbol).restype = ctypes.c_int
@@ -565,7 +591,8 @@ def k4_bf16(dev, gen, parent=None) -> None:
   src = parent_source(parent, "iqn_head_bwd.cu")
   if src is None:
     raise SystemExit("k4_bf16 needs --parent (a checkout root)")
-  plib = bwd_build("parent_iqn_head_bwd", open(src).read())
+  plib = bwd_build("parent_iqn_head_bwd", open(src).read(),
+                   include=os.path.dirname(src))
   for name in ("dz_iqn_head_bwd_w_bf16", "dz_iqn_head_bwd_d_bf16"):
     f32 = ih.BWD_W if name.endswith("w_bf16") else ih.BWD_D
     getattr(plib, name).argtypes = f32.argtypes
@@ -707,6 +734,202 @@ def k4_bf16_parts(dev, gen) -> None:
         None, b, s, d, gd, kernels.stream_ptr(dev)))
     line[name] = dict(w_ms=graph_ms(w, n=5), d_ms=graph_ms(dd, n=5))
   print("K4_BF16_PARTS " + json.dumps(line), flush=True)
+
+
+def _sass_functions(lib_path) -> dict:
+  """{mangled name without its anonymous namespace: SASS instructions} of
+  every function in a library, by cuobjdump, addresses and encodings
+  dropped."""
+  tool = os.path.join(os.path.dirname(kernels.find_nvcc()), "cuobjdump")
+  sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                        text=True, check=True).stdout
+  out = {}
+  for f in re.split(r"\n\s*Function : ", sass)[1:]:
+    name = re.sub(r"_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "_ZN",
+                  f.split("\n", 1)[0].strip())
+    out[name] = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*;)", f)
+  return out
+
+
+def _f32_sass_against(parent_root) -> dict:
+  """Whether each f32 kernel of iqn_head.cu, iqn_head_bwd.cu and
+  dqn_torso.cu, built from this tree and from the parent's (each with its
+  own csrc/tf32_mma.cuh), is the same SASS. The parent's K4a kernels carry
+  a second template flag, bf16 mode, whose false instantiations are the
+  ones compared."""
+  pcsrc = os.path.join(parent_root, "dqn_zoo_torch", "csrc")
+  out = {}
+  for source in ("iqn_head.cu", "iqn_head_bwd.cu", "dqn_torso.cu"):
+    kernels.build_all([source])
+    mine = _sass_functions(kernels._lib_path(source))
+    build(f"parent_{source[:-3]}", open(os.path.join(pcsrc, source)).read(),
+          include=pcsrc)
+    theirs = {}
+    for name, body in _sass_functions(
+        OUT / f"parent_{source[:-3]}.so").items():
+      if source == "iqn_head.cu":
+        if "ELb1EE" in name:
+          continue  # the bf16 mode this tree moved to iqn_head_bf16.cu
+        name = name.replace("ELb0EE", "EE")
+      theirs[name] = body
+    for name, body in mine.items():
+      other = theirs.get(name)
+      out[f"{source}:{name}"] = dict(
+          instructions=len(body),
+          parent_instructions=None if other is None else len(other),
+          identical=other == body)
+  return out
+
+
+def _head_args(dev, gen, b, s, a=6):
+  n = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+  return (n(64, 3136) * 0.05, n(3136) * 0.05, n(3136, 512) * 0.015,
+          n(512) * 0.05, n(512, a) * 0.05, n(a) * 0.05, n(b, s, 64),
+          torch.relu(n(b, 3136)))
+
+
+# K4a's bf16 path shapes: (B, S, residuals, role).
+K4A_BF16_SHAPES = ((128, 64, False, "act"), (1024, 64, True, "online"),
+                   (1024, 128, False, "target"))
+
+
+def k4a_bf16(dev, gen, parent=None) -> None:
+  """K4a in bf16 mode at the iqn path's shapes: this source's kernel (on
+  staged weights, and with its staging pass) against the --parent
+  checkout's bf16 mode of csrc/iqn_head.cu, and the f32 K4a of both, in
+  turns; bf16 cuBLAS beside; the f32 kernels' SASS against the parent's."""
+  if parent is None or not os.path.isdir(parent):
+    raise SystemExit("k4a_bf16 needs --parent (a checkout root)")
+  pcsrc = os.path.join(parent, "dqn_zoo_torch", "csrc")
+  plib = build("parent_iqn_head_k4a", open(os.path.join(
+      pcsrc, "iqn_head.cu")).read(), include=pcsrc)
+  for name in ("dz_iqn_head", "dz_iqn_head_bf16"):
+    getattr(plib, name).argtypes = ih._ARGS
+    getattr(plib, name).restype = ctypes.c_int
+  bf = torch.bfloat16
+  for b, s, res, role in K4A_BF16_SHAPES:
+    args = _head_args(dev, gen, b, s)
+    we, be, wh, bh, wo, bo, cos_emb, s_emb = args
+    a, d = 6, 3136
+    q = torch.empty((b, s, a), device=dev)
+    h = torch.empty((b * s, 512), device=dev) if res else None
+    splits = ih.d_splits(b, s)
+    part = torch.empty((splits, b * s, 512), device=dev) if splits > 1 \
+        else None
+
+    def parent_call(entry):
+      ptrs = [t.data_ptr() for t in (cos_emb, s_emb, we, be, wh, bh, wo, bo)]
+      _ok(entry, getattr(plib, entry)(
+          *ptrs, q.data_ptr(), None if h is None else h.data_ptr(),
+          None if part is None else part.data_ptr(), b, s, d, a, int(res),
+          splits, ih.chunks_per_split(splits), kernels.stream_ptr(dev)))
+
+    st = ih.iqn_head_stage_fwd_bf16(we, be, wh)
+    lib_args = [t.to(bf) for t in (we, be, wh, bh, wo, bo,
+                                   cos_emb.reshape(b * s, -1), s_emb)]
+
+    def library():
+      lw, lbe, lwh, lbh, lwo, lbo, lcos, lse = lib_args
+      te = torch.addmm(lbe, lcos, lw).relu_()
+      hi = (te.view(b, s, -1) * lse[:, None, :]).view(b * s, -1)
+      return torch.addmm(lbo, torch.addmm(lbh, hi, lwh).relu_(), lwo)
+
+    runs = {
+        "bf16": (lambda: parent_call("dz_iqn_head_bf16"),
+                 lambda: ih.iqn_head_forward(*args, residuals=res, mm=bf,
+                                             staged=st)),
+        "bf16_with_staging": (lambda: parent_call("dz_iqn_head_bf16"),
+                              lambda: ih.iqn_head_forward(
+                                  *args, residuals=res, mm=bf)),
+        "f32": (lambda: parent_call("dz_iqn_head"),
+                lambda: ih.iqn_head_forward(*args, residuals=res)),
+    }
+    it = 5 if b == 1024 else 20
+    line = dict(shape=f"B={b} S={s} A={a}", role=role, residuals=res)
+    for name, (par, this) in runs.items():
+      got = collections.defaultdict(list)
+      for who, fn in (("parent", par), ("this", this), ("this", this),
+                      ("parent", par)):
+        got[who].append(graph_ms(fn, n=it))
+      line[name] = dict(got)
+    line["stage_ms"] = graph_ms(
+        lambda: ih.iqn_head_stage_fwd_bf16(we, be, wh), n=20)
+    line["bf16_cublas_ms"] = graph_ms(library, n=it)
+    print("K4A_BF16 " + json.dumps(line), flush=True)
+    del args, q, h, part, st, lib_args
+  print("K4A_BF16_SASS " + json.dumps(_f32_sass_against(parent)), flush=True)
+
+
+# K4a's bf16 kernel's phases, each cut out by replacing its text in
+# csrc/iqn_head_bf16.cu (the outputs are then wrong; only the time counts).
+# Cutting the refills also cuts the waits on chunks past the first ring.
+K4A_BF16_CUTS = {
+    "no_te_mma": [("      wgmma_64_ss(tp, desc_sw128(cb + 32 * ks",
+                   "      if (false) wgmma_64_ss(tp, desc_sw128(cb + 32 * ks")],
+    "no_form": [("    if constexpr (kNext) form(k + 1, nxt);", "")],
+    "no_main_mma": [("      wgmma_256(acc, x[kk], desc_sw128(whb",
+                     "      if (false) wgmma_256(acc, x[kk], desc_sw128(whb")],
+    "no_refills": [("if (tid == 0 && k >= 1 && k - 1 + kStages < n) "
+                    "issue(k - 1 + kStages);", ""),
+                   ("      mbar_wait(bar_s + 8 * ((k + 1) % kStages), "
+                    "((k + 1) / kStages) & 1);",
+                    "      if (k + 1 < kStages) mbar_wait(bar_s + 8 * "
+                    "((k + 1) % kStages), ((k + 1) / kStages) & 1);")],
+    "no_q_epilogue": [("  for (int o0 = 0; o0 < a; o0 += 8 * kQT) {",
+                       "  for (int o0 = 0; o0 < 0; o0 += 8 * kQT) {")],
+    # Forming hi without its shared-memory loads of be and s_emb.
+    "form_no_smem": [("        const float2 b = *reinterpret_cast<const "
+                      "float2*>(bes + col);\n        const float2 sv",
+                      "        const float2 b = make_float2(0.f, 0.f);\n"
+                      "        const float2 sv"),
+                     ("        const float2 sv = *reinterpret_cast<const "
+                      "float2*>(ses + col);", "        const float2 sv = "
+                      "make_float2(1.f, 1.f);")],
+}
+K4A_BF16_CUTS["te_and_loads_only"] = K4A_BF16_CUTS["no_form"] + \
+    K4A_BF16_CUTS["no_main_mma"]
+K4A_BF16_CUTS["main_and_loads_only"] = K4A_BF16_CUTS["no_form"] + \
+    K4A_BF16_CUTS["no_te_mma"]
+# A variant that keeps the outputs right: a ring of 3 stages.
+K4A_BF16_CUTS["stages_3"] = [("constexpr int kStages = 4;",
+                              "constexpr int kStages = 3;")]
+
+
+def k4a_bf16_parts(dev, gen) -> None:
+  """K4a's bf16 kernel at its three path shapes with one phase cut out at a
+  time, and its variants: where its time goes."""
+  src = (kernels.CSRC / "iqn_head_bf16.cu").read_text()
+  variants = {"kernel": src}
+  for name, cuts in K4A_BF16_CUTS.items():
+    cut = src
+    for old, new in cuts:
+      if old not in cut:
+        raise SystemExit(f"{name}: {old!r} is no longer in iqn_head_bf16.cu")
+      cut = cut.replace(old, new)
+    variants[name] = cut
+  inputs = {}
+  for b, s, res, role in K4A_BF16_SHAPES:
+    args = _head_args(dev, gen, b, s)
+    st = ih.iqn_head_stage_fwd_bf16(*args[:3])
+    q = torch.empty((b, s, 6), device=dev)
+    h = torch.empty((b * s, 512), device=dev)
+    qpart = torch.empty((2, b * s, 6), device=dev)
+    inputs[role] = (b, s, res, args, st, q, h, qpart)
+  line = {}
+  for name, text in variants.items():
+    lib = build(f"iqn_head_bf16_{name}", text)
+    fn = getattr(lib, ih.FWD_BF16.symbol)
+    fn.argtypes, fn.restype = ih.FWD_BF16.argtypes, ctypes.c_int
+    line[name] = {}
+    for role, (b, s, res, args, st, q, h, qpart) in inputs.items():
+      call = lambda: _ok(name, fn(
+          args[6].data_ptr(), args[7].data_ptr(), st.data_ptr(),
+          args[3].data_ptr(), args[4].data_ptr(), args[5].data_ptr(),
+          q.data_ptr(), h.data_ptr(), None, qpart.data_ptr(), b, s, 3136, 6,
+          int(res), 1, ih.bf16_fwd_chunks_per_split(1),
+          kernels.stream_ptr(dev)))
+      line[name][f"{role}_ms"] = graph_ms(call, n=5 if b == 1024 else 20)
+  print("K4A_BF16_PARTS " + json.dumps(line), flush=True)
 
 
 # K2's phases, each cut by a text substitution after its block barrier (the
@@ -894,11 +1117,13 @@ def main() -> int:
                 k4c_sass=lambda: k4c_sass(dev, gen),
                 k4_bf16=lambda: k4_bf16(dev, gen, *parent),
                 k4_bf16_parts=lambda: k4_bf16_parts(dev, gen),
+                k4a_bf16=lambda: k4a_bf16(dev, gen, *parent),
+                k4a_bf16_parts=lambda: k4a_bf16_parts(dev, gen),
                 k2=lambda: k2(dev, gen, *parent),
                 k2_parent=lambda: k2(dev, gen, *parent, parent_only=True),
                 k1=lambda: k1(dev, gen))
   for name in names or [c for c in checks
-                        if c not in ("k2_parent", "k4_bf16")]:
+                        if c not in ("k2_parent", "k4_bf16", "k4a_bf16")]:
     checks[name]()
   return 0
 

@@ -1,0 +1,15 @@
+"""Mean host ms of the window's supersteps that took the env's reset branch
+(some stream's episode had ended: the 30-frame noop burn runs for the
+batch). The flag is kept on the card before each superstep and read after
+the window."""
+
+from benchmark import readers
+
+LAYER = "envs (envs/vector.py, envs/games)"
+UNIT = "ms"
+MOVES = "superstep_ms.p95"
+KERNELS = ()
+
+
+def read(ctx):
+  return readers.reset_superstep_ms(ctx)

@@ -1,0 +1,13 @@
+"""Ms a superstep in which the card was idle while the innermost span open
+on the host was `env.step`, `env.reset_burn`, `sync.reset` or `prep`."""
+
+from benchmark import spans
+
+LAYER = "device (H100)"
+UNIT = "ms"
+MOVES = "train_frames_per_s"
+KERNELS = ()
+
+
+def read(ctx):
+  return spans.idle_ms(ctx, spans.ENV)

@@ -30,10 +30,10 @@ import torch
 from dqn_zoo_torch import prep
 from dqn_zoo_torch.agents.base import AdamState, RMSPropState
 from dqn_zoo_torch.engine.superstep import (Engine, EngineConfig,
-                                            SuperstepDraws, Telemetry,
-                                            _StageClock)
+                                            SuperstepDraws, Telemetry)
 from dqn_zoo_torch.envs.cpp_bridge import CppVectorEnv, HostGroupOutput
 from dqn_zoo_torch.replay import device_replay as dr
+from dqn_zoo_torch.utils import profiling
 
 
 class HostEngineState(NamedTuple):
@@ -89,36 +89,45 @@ class HostEnvEngine:
     """One superstep over `group` (which this engine's env returned);
     returns the new state and the actions (B,) int32 for the farm's next
     step. `timings`, when given, gets seconds added per stage (upload, act,
-    insert, learn), each fenced by a device synchronize."""
-    cfg, eng = self.config, self._fused
-    if draws is None:
-      draws = self.draw(state.generator)
-    clock = _StageClock(self.device, timings)
-    out = self.env.upload(group)
-    clock.lap("upload")
+    insert, learn), each fenced by a device synchronize.
 
-    stack = prep.frame_stack_update(state.stack, out.obs84, out.is_first)
-    actions, values = eng._act(state.online_params, stack.frames,
-                               eng.exploration_epsilon(state.env_frames),
-                               draws)
-    clock.lap("act")
+    Its spans: the root `superstep` over draw, upload, act, insert,
+    sync.gate, learn (as in Engine.superstep), target_swap and
+    telemetry."""
+    cfg, eng = self.config, self._fused
+    profiling.root("superstep", state.superstep)
+    if draws is None:
+      with profiling.span("draw"):
+        draws = self.draw(state.generator)
+    fence = profiling.fence(self.device, timings)
+    with profiling.span("upload"):
+      out = self.env.upload(group)
+    fence.lap("upload")
+
+    with profiling.span("act"):
+      stack = prep.frame_stack_update(state.stack, out.obs84, out.is_first)
+      actions, values = eng._act(state.online_params, stack.frames,
+                                 eng.exploration_epsilon(state.env_frames),
+                                 draws)
+    fence.lap("act")
 
     # This step's observation and action, with the reward that led to it
     # (FIRST rows carry zero reward and discount).
-    zero = torch.zeros_like(out.reward_sum)
-    replay = dr.replay_insert(
-        self.rcfg, state.replay, out.obs84, stack.count, actions,
-        torch.where(out.is_first, zero, torch.clamp(out.reward_sum, -1.0,
-                                                    1.0)),
-        torch.where(out.is_first, zero, out.discount_prod * 0.99),
-        out.is_last)
+    with profiling.span("insert"):
+      zero = torch.zeros_like(out.reward_sum)
+      replay = dr.replay_insert(
+          self.rcfg, state.replay, out.obs84, stack.count, actions,
+          torch.where(out.is_first, zero, torch.clamp(out.reward_sum, -1.0,
+                                                      1.0)),
+          torch.where(out.is_first, zero, out.discount_prod * 0.99),
+          out.is_last)
+      gate = torch.cat([actions.to(torch.int64), eng.gate_size(replay)])
     env_frames = state.env_frames + int(group.frames_used.sum())
     # The one wait on the card: the actions and the replay size together.
-    back = torch.cat([actions.to(torch.int64),
-                      eng.gate_size(replay)]).cpu()
-    actions_np = back[:-1].numpy().astype(np.int32)
-    size = int(back[-1])
-    clock.lap("insert")
+    back = profiling.host_read(gate, "gate")
+    actions_np = np.asarray(back[:-1], dtype=np.int32)
+    size = back[-1]
+    fence.lap("insert")
 
     tel = state.telemetry
     online, opt_state = state.online_params, state.opt_state
@@ -128,29 +137,32 @@ class HostEnvEngine:
       last_loss = eng.learn(replay, state.target_params, online, opt_state,
                             draws)
       nupd = cfg.updates_per_learn
-    eng.swap_target(state.target_params, online, state.env_frames,
-                    env_frames)
+    with profiling.span("target_swap"):
+      eng.swap_target(state.target_params, online, state.env_frames,
+                      env_frames)
 
     # Telemetry as the JAX host engine keeps it (no last episode return).
-    ep_ret = tel.episode_return + out.reward_sum
-    finished = out.is_last
-    step_size = 1e-3
-    telemetry = Telemetry(
-        episode_return=torch.where(finished, zero, ep_ret),
-        episode_frames=torch.where(finished,
-                                   torch.zeros_like(tel.episode_frames),
-                                   tel.episode_frames + out.frames_used),
-        completed_return_sum=tel.completed_return_sum
-        + torch.where(finished, ep_ret, zero).sum(),
-        completed_count=tel.completed_count + finished.sum(),
-        last_episode_return=tel.last_episode_return,
-        state_value_ewma=(1.0 - step_size) * tel.state_value_ewma
-        + step_size * torch.mean(values),
-        ewma_trace=(1.0 - step_size) * tel.ewma_trace + step_size,
-        last_loss=last_loss,
-        learn_steps=tel.learn_steps + nupd,
-    )
-    clock.lap("learn")
+    with profiling.span("telemetry"):
+      ep_ret = tel.episode_return + out.reward_sum
+      finished = out.is_last
+      step_size = 1e-3
+      telemetry = Telemetry(
+          episode_return=torch.where(finished, zero, ep_ret),
+          episode_frames=torch.where(finished,
+                                     torch.zeros_like(tel.episode_frames),
+                                     tel.episode_frames + out.frames_used),
+          completed_return_sum=tel.completed_return_sum
+          + torch.where(finished, ep_ret, zero).sum(),
+          completed_count=tel.completed_count + finished.sum(),
+          last_episode_return=tel.last_episode_return,
+          state_value_ewma=(1.0 - step_size) * tel.state_value_ewma
+          + step_size * torch.mean(values),
+          ewma_trace=(1.0 - step_size) * tel.ewma_trace + step_size,
+          last_loss=last_loss,
+          learn_steps=tel.learn_steps + nupd,
+      )
+    fence.lap("learn")
+    profiling.end()
     return HostEngineState(
         stack=stack, replay=replay, online_params=online,
         target_params=state.target_params, opt_state=opt_state,

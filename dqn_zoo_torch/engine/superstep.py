@@ -44,7 +44,6 @@ tests hand in the values the JAX engine drew).
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, Dict, NamedTuple, Optional, Union
 
 import torch
@@ -60,6 +59,7 @@ from dqn_zoo_torch.envs.vector import (EnvDraws, VecEnvState, VectorAtariEnv,
 from dqn_zoo_torch.nets.core import COMPUTE_DTYPES
 from dqn_zoo_torch.ops.policy import epsilon_greedy_draws
 from dqn_zoo_torch.replay import device_replay as dr
+from dqn_zoo_torch.utils import profiling
 from dqn_zoo_torch.utils.pytree import leaves, tree_map
 from dqn_zoo_torch.utils.schedules import linear_schedule
 
@@ -357,17 +357,24 @@ class Engine:
     `loss_args` are the update's τ sets and noise sets, if the loss takes
     any."""
     beta = self.importance_sampling_exponent(replay.t * self.config.num_envs)
-    batch, sampled, weights = dr.replay_sample(self.rcfg, replay, sample_u,
-                                               beta)
-    out = self.spec.loss(self.spec, self.network, online, target, batch,
-                         weights, *loss_args)
+    with profiling.span("learn.sample"):
+      batch, sampled, weights = dr.replay_sample(self.rcfg, replay, sample_u,
+                                                 beta)
+    with profiling.span("learn.loss"):
+      out = self.spec.loss(self.spec, self.network, online, target, batch,
+                           weights, *loss_args)
     params = leaves(online)
-    grads = torch.autograd.grad(out.loss, params)
+    with profiling.span("learn.backward"):
+      grads = torch.autograd.grad(out.loss, params)
     if self.config.pmap_axis is not None:
-      grads = self._mean_over_ranks(grads)
-    self.optimizer.step(params, list(grads), opt_state)
+      with profiling.span("learn.allreduce"):
+        grads = self._mean_over_ranks(grads)
+    with profiling.span("learn.optimizer"):
+      self.optimizer.step(params, list(grads), opt_state)
     if self.rcfg.priority_exponent > 0:
-      dr.replay_update_priorities(self.rcfg, replay, sampled, out.priorities)
+      with profiling.span("learn.priorities"):
+        dr.replay_update_priorities(self.rcfg, replay, sampled,
+                                    out.priorities)
     return out.loss.detach()
 
   def _mean_over_ranks(self, grads):
@@ -399,11 +406,12 @@ class Engine:
             draws: SuperstepDraws) -> torch.Tensor:
     """The learn block: `updates_per_learn` SGD steps, each with its own
     replay draws, τ sets and noise sets; returns the last loss."""
-    for u in range(self.config.updates_per_learn):
-      args = tuple(t[u] for t in draws.loss_taus or ()) + tuple(
-          type(n)(*(x[u] for x in n)) for n in draws.loss_noise or ())
-      loss = self._sgd_update(replay, target, online, opt_state,
-                              draws.sample_u[u], args)
+    with profiling.span("learn"):
+      for u in range(self.config.updates_per_learn):
+        args = tuple(t[u] for t in draws.loss_taus or ()) + tuple(
+            type(n)(*(x[u] for x in n)) for n in draws.loss_noise or ())
+        loss = self._sgd_update(replay, target, online, opt_state,
+                                draws.sample_u[u], args)
     return loss
 
   def swap_target(self, target, online, frames_before: int,
@@ -424,51 +432,65 @@ class Engine:
                 draws: Optional[SuperstepDraws] = None,
                 timings: Optional[Dict[str, float]] = None) -> EngineState:
     """One superstep. `timings`, when given, gets seconds added per stage
-    (act, insert, env_prep, learn), each fenced by a device synchronize."""
+    (act, insert, env_prep, learn), each fenced by a device synchronize.
+
+    Its spans (utils/profiling.py): the root `superstep` (step: the
+    superstep's index) over draw, act, insert, env.step, prep, sync.gate,
+    learn (learn.sample, learn.loss, learn.backward, learn.allreduce with
+    data parallelism, learn.optimizer, learn.priorities with prioritized
+    replay), target_swap and telemetry."""
     cfg = self.config
+    profiling.root("superstep", state.superstep)
     if draws is None:
-      draws = self.draw(state.generator)
-    clock = _StageClock(self.device, timings)
+      with profiling.span("draw"):
+        draws = self.draw(state.generator)
+    fence = profiling.fence(self.device, timings)
 
     # 1. act on the current stacks.
-    eps = self.exploration_epsilon(state.env_frames)
-    actions, values = self._act(state.online_params, state.stack.frames,
-                                eps, draws)
-    clock.lap("act")
+    with profiling.span("act"):
+      eps = self.exploration_epsilon(state.env_frames)
+      actions, values = self._act(state.online_params, state.stack.frames,
+                                  eps, draws)
+    fence.lap("act")
 
     # 2. insert the pending row, now that its action exists (in overlap
     # mode after the learn block).
     p = state.pending
 
     def insert(replay):
-      replay = dr.replay_insert(self.rcfg, replay, p.frame, p.stack_count,
-                                actions, p.reward, p.discount, p.is_terminal)
-      clock.lap("insert")
+      with profiling.span("insert"):
+        replay = dr.replay_insert(self.rcfg, replay, p.frame, p.stack_count,
+                                  actions, p.reward, p.discount,
+                                  p.is_terminal)
+      fence.lap("insert")
       return replay
 
     replay = state.replay if cfg.overlap_env_learn else insert(state.replay)
 
     # 3-4. env step + preprocessing.
-    env_state, out = self.env.step(state.env, actions, draws.env)
-    obs84 = prep.pooled_frame_to_84(out.frame_penult, out.frame_last,
-                                    cfg.resize_method)
-    stack = prep.frame_stack_update(state.stack, obs84, out.is_first)
+    with profiling.span("env.step"):
+      env_state, out = self.env.step(state.env, actions, draws.env)
+    with profiling.span("prep"):
+      obs84 = prep.pooled_frame_to_84(out.frame_penult, out.frame_last,
+                                      cfg.resize_method)
+      stack = prep.frame_stack_update(state.stack, obs84, out.is_first)
 
-    # 5. cache the next pending row (FIRST rows carry zero reward/discount).
-    zero = torch.zeros_like(out.reward_sum)
-    pending = PendingRow(
-        frame=obs84,
-        stack_count=stack.count,
-        reward=torch.where(out.is_first, zero,
-                           torch.clamp(out.reward_sum, -1.0, 1.0)),
-        discount=torch.where(out.is_first, zero, out.discount_prod * 0.99),
-        is_terminal=out.is_last,
-    )
-    frames_used, size = torch.cat(
-        [out.frames_used.sum().to(torch.int64).view(1),
-         self.gate_size(replay)]).tolist()
+      # 5. cache the next pending row (FIRST rows carry zero
+      # reward/discount).
+      zero = torch.zeros_like(out.reward_sum)
+      pending = PendingRow(
+          frame=obs84,
+          stack_count=stack.count,
+          reward=torch.where(out.is_first, zero,
+                             torch.clamp(out.reward_sum, -1.0, 1.0)),
+          discount=torch.where(out.is_first, zero, out.discount_prod * 0.99),
+          is_terminal=out.is_last,
+      )
+      gate = torch.cat([out.frames_used.sum().to(torch.int64).view(1),
+                        self.gate_size(replay)])
+    frames_used, size = profiling.host_read(gate, "gate")
     env_frames = state.env_frames + frames_used
-    clock.lap("env_prep")
+    fence.lap("env_prep")
 
     # 6. gated learning. The gate reads only numbers equal on every rank (the
     # superstep count and the least replay size over the ranks): with data
@@ -484,34 +506,38 @@ class Engine:
       nupd = cfg.updates_per_learn
 
     # 7. target swap on frame-count boundary crossings.
-    self.swap_target(state.target_params, online, state.env_frames,
-                     env_frames)
-    clock.lap("learn")
+    with profiling.span("target_swap"):
+      self.swap_target(state.target_params, online, state.env_frames,
+                       env_frames)
+    fence.lap("learn")
     if cfg.overlap_env_learn:
       replay = insert(replay)
 
     # 8. telemetry.
-    ep_ret = tel.episode_return + out.raw_reward_sum
-    finished = out.is_last
-    fin_ret = torch.where(finished, ep_ret, zero)
-    n_fin = finished.sum()
-    last_ret = torch.where(n_fin > 0, fin_ret.sum() / torch.clamp(n_fin, min=1),
-                           tel.last_episode_return)
-    step_size = 1e-3
-    telemetry = Telemetry(
-        episode_return=torch.where(finished, zero, ep_ret),
-        episode_frames=torch.where(finished,
-                                   torch.zeros_like(tel.episode_frames),
-                                   tel.episode_frames + out.frames_used),
-        completed_return_sum=tel.completed_return_sum + fin_ret.sum(),
-        completed_count=tel.completed_count + n_fin,
-        last_episode_return=last_ret,
-        state_value_ewma=(1.0 - step_size) * tel.state_value_ewma
-        + step_size * torch.mean(values),
-        ewma_trace=(1.0 - step_size) * tel.ewma_trace + step_size,
-        last_loss=last_loss,
-        learn_steps=tel.learn_steps + nupd,
-    )
+    with profiling.span("telemetry"):
+      ep_ret = tel.episode_return + out.raw_reward_sum
+      finished = out.is_last
+      fin_ret = torch.where(finished, ep_ret, zero)
+      n_fin = finished.sum()
+      last_ret = torch.where(n_fin > 0,
+                             fin_ret.sum() / torch.clamp(n_fin, min=1),
+                             tel.last_episode_return)
+      step_size = 1e-3
+      telemetry = Telemetry(
+          episode_return=torch.where(finished, zero, ep_ret),
+          episode_frames=torch.where(finished,
+                                     torch.zeros_like(tel.episode_frames),
+                                     tel.episode_frames + out.frames_used),
+          completed_return_sum=tel.completed_return_sum + fin_ret.sum(),
+          completed_count=tel.completed_count + n_fin,
+          last_episode_return=last_ret,
+          state_value_ewma=(1.0 - step_size) * tel.state_value_ewma
+          + step_size * torch.mean(values),
+          ewma_trace=(1.0 - step_size) * tel.ewma_trace + step_size,
+          last_loss=last_loss,
+          learn_steps=tel.learn_steps + nupd,
+      )
+    profiling.end()
     return EngineState(
         env=env_state, stack=stack, pending=pending, replay=replay,
         online_params=online, target_params=state.target_params,
@@ -578,19 +604,26 @@ class Engine:
 
   def eval_superstep(self, params, state: EvalState,
                      draws: Optional[SuperstepDraws] = None) -> EvalState:
+    """One eval superstep; its spans: the root `eval.superstep` over draw,
+    act, env.step and prep."""
     env = self._eval_env(state.episode_return.shape[0])
+    profiling.root("eval.superstep")
     if draws is None:
-      draws = self.draw(state.generator, env, learn=False)
-    actions, _ = self._act(params, state.stack.frames,
-                           self.spec.eval_exploration_epsilon, draws)
-    env_state, out = env.step(state.env, actions, draws.env)
-    obs84 = prep.pooled_frame_to_84(out.frame_penult, out.frame_last,
-                                    self.config.resize_method)
-    stack = prep.frame_stack_update(state.stack, obs84, out.is_first)
+      with profiling.span("draw"):
+        draws = self.draw(state.generator, env, learn=False)
+    with profiling.span("act"):
+      actions, _ = self._act(params, state.stack.frames,
+                             self.spec.eval_exploration_epsilon, draws)
+    with profiling.span("env.step"):
+      env_state, out = env.step(state.env, actions, draws.env)
+    with profiling.span("prep"):
+      obs84 = prep.pooled_frame_to_84(out.frame_penult, out.frame_last,
+                                      self.config.resize_method)
+      stack = prep.frame_stack_update(state.stack, obs84, out.is_first)
     ep_ret = state.episode_return + out.raw_reward_sum
     finished = out.is_last
     zero = torch.zeros_like(ep_ret)
-    return EvalState(
+    new = EvalState(
         env=env_state, stack=stack, generator=state.generator,
         env_frames=state.env_frames + out.frames_used.sum(),
         episode_return=torch.where(finished, zero, ep_ret),
@@ -598,6 +631,8 @@ class Engine:
         + torch.where(finished, ep_ret, zero).sum(),
         completed_count=state.completed_count + finished.sum(),
     )
+    profiling.end()
+    return new
 
   def eval_run(self, params, state: EvalState,
                num_supersteps: int) -> EvalState:
@@ -610,25 +645,3 @@ def _f32(x) -> torch.Tensor:
   """A count as the JAX engine's float32 scalar."""
   return torch.as_tensor(float(x), dtype=torch.float32)
 
-
-class _StageClock:
-  """Adds fenced wall-clock seconds per stage to `timings` (if given)."""
-
-  def __init__(self, device: torch.device, timings):
-    self.timings = timings
-    self.device = device
-    if timings is not None:
-      self._sync()
-      self.t = time.perf_counter()
-
-  def _sync(self):
-    if self.device.type == "cuda":
-      torch.cuda.synchronize(self.device)
-
-  def lap(self, name: str) -> None:
-    if self.timings is None:
-      return
-    self._sync()
-    now = time.perf_counter()
-    self.timings[name] = self.timings.get(name, 0.0) + now - self.t
-    self.t = now

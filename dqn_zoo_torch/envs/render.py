@@ -7,11 +7,15 @@ import torch
 from dqn_zoo_torch.envs.api import FRAME_HEIGHT, FRAME_WIDTH
 
 
-def _coord(v, device) -> torch.Tensor:
-  """(B,) or scalar coordinate -> int32, floats truncated like astype."""
+def _edge(v):
+  """A box edge to compare with a row or column index: an int as it is (a
+  Python scalar, which reaches the device without a copy; a tensor made
+  from it on the host would be copied, and the copy waits for the
+  device), a (B,) tensor as int32 (floats truncated like astype) with a
+  trailing axis."""
   if isinstance(v, int):
-    return torch.tensor(v, dtype=torch.int32, device=device)
-  return v.to(torch.int32)
+    return v
+  return v.to(torch.int32)[..., None]
 
 
 def rect_mask(y0, y1, x0, x1, device) -> torch.Tensor:
@@ -23,10 +27,15 @@ def rect_mask(y0, y1, x0, x1, device) -> torch.Tensor:
   """
   rows = torch.arange(FRAME_HEIGHT, dtype=torch.int32, device=device)
   cols = torch.arange(FRAME_WIDTH, dtype=torch.int32, device=device)
-  y0, y1, x0, x1 = (_coord(v, device) for v in (y0, y1, x0, x1))
-  rm = (rows >= y0[..., None]) & (rows < y1[..., None])
-  cm = (cols >= x0[..., None]) & (cols < x1[..., None])
+  y0, y1, x0, x1 = (_edge(v) for v in (y0, y1, x0, x1))
+  rm = (rows >= y0) & (rows < y1)
+  cm = (cols >= x0) & (cols < x1)
   return rm[..., :, None] & cm[..., None, :]
+
+
+# (colours, device) -> (K, 3) uint8 palette: a copy from the host each
+# frame would wait for the device.
+_PALETTES: dict = {}
 
 
 def compose(batch: int, device, background_rgb, *layers) -> torch.Tensor:
@@ -34,11 +43,14 @@ def compose(batch: int, device, background_rgb, *layers) -> torch.Tensor:
 
   Returns (B, 210, 160, 3) uint8; masks are (210, 160) or (B, 210, 160).
   Each pixel takes the index of its top layer, and one gather from the
-  palette paints them all: the same frame as a select per layer, with one
-  copy of colours to the device in place of one a layer.
+  palette paints them all: the same frame as a select per layer. The
+  palette is made once for each set of colours and device.
   """
-  palette = torch.tensor((background_rgb,) + tuple(rgb for _, rgb in layers),
-                         dtype=torch.uint8, device=device)
+  colours = (tuple(background_rgb),) + tuple(tuple(rgb) for _, rgb in layers)
+  palette = _PALETTES.get((colours, device))
+  if palette is None:
+    palette = _PALETTES[colours, device] = torch.tensor(
+        colours, dtype=torch.uint8, device=device)
   index = torch.zeros((batch, FRAME_HEIGHT, FRAME_WIDTH), dtype=torch.int64,
                       device=device)
   for k, (mask, _) in enumerate(layers, 1):

@@ -27,6 +27,7 @@ import torch
 from dqn_zoo_torch.device import resolve_device
 from dqn_zoo_torch.envs.api import (FRAME_HEIGHT, FRAME_WIDTH, Game,
                                     GroupOutput, tree_where)
+from dqn_zoo_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,7 +123,9 @@ class VectorAtariEnv:
            draws: EnvDraws) -> Tuple[VecEnvState, GroupOutput]:
     """One agent-step (up to `action_repeat` raw frames) for all B envs.
 
-    Functional: returns new tensors and leaves `state` as it was."""
+    Functional: returns new tensors and leaves `state` as it was. Its
+    spans: sync.reset (the read of whether any env needs a reset) and,
+    where one does, env.reset_burn, counted under env.reset_branch."""
     b, dev = self.batch_size, self.device
     zero_frame = torch.zeros((b, FRAME_HEIGHT, FRAME_WIDTH, 3),
                              dtype=torch.uint8, device=dev)
@@ -158,8 +161,10 @@ class VectorAtariEnv:
     lives = self.game.lives(gs_c)
     reset = state.needs_reset
     false = torch.zeros_like(reset)
-    if bool(reset.any()):
-      gs_r = self._reset_all(draws)
+    if profiling.host_read(reset.any(), "reset"):
+      with profiling.span("env.reset_burn"):
+        gs_r = self._reset_all(draws)
+      profiling.count("env.reset_branch")
       col = reset[:, None, None, None]
       gs_c = tree_where(reset, gs_r, gs_c)
       f_pen = torch.where(col, zero_frame, f_pen)

@@ -25,8 +25,9 @@ def epsilon_greedy_sample(q_values: torch.Tensor, epsilon,
   when the row explores.
   """
   greedy = torch.argmax(q_values, dim=-1)
-  explore = explore_uniform < torch.as_tensor(epsilon,
-                                               device=q_values.device)
+  # ε as a host scalar: a copy of it to the device would wait for the
+  # device.
+  explore = explore_uniform < torch.as_tensor(epsilon)
   return torch.where(explore, random_action.to(greedy.dtype), greedy)
 
 

@@ -8,6 +8,7 @@ a `torch.Generator`), so a test can hand in the values the JAX reference drew.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
@@ -69,6 +70,16 @@ def tree_where(mask: torch.Tensor, a, b):
     m = mask.reshape(mask.shape + (1,) * (x.dim() - 1))
     return torch.where(m, x, y)
   return type(a)(*(sel(x, y) for x, y in zip(a, b)))
+
+
+@functools.lru_cache(maxsize=None)
+def constant(values: tuple, dtype: torch.dtype, device) -> torch.Tensor:
+  """`torch.tensor(values, dtype=dtype, device=device)`, made once for each
+  set of values (nested tuples), dtype and device and handed out again
+  after: a copy from the host on every call waits for the device, and
+  cannot be captured in a CUDA graph (envs/vector.py). Callers must not
+  write into it."""
+  return torch.tensor(values, dtype=dtype, device=device)
 
 
 _REGISTRY = {}

@@ -24,7 +24,7 @@ from typing import NamedTuple
 import torch
 
 from dqn_zoo_torch.envs import f32, render
-from dqn_zoo_torch.envs.api import Game, register_game
+from dqn_zoo_torch.envs.api import Game, constant, register_game
 from dqn_zoo_torch.envs.games import last_true
 
 NUM_DRONES = 3
@@ -113,8 +113,8 @@ def assault_init(draws: AssaultInitDraws) -> AssaultState:
       drone_y=f(0.0, NUM_DRONES),
       drone_dir=f(1.0, NUM_DRONES),
       drone_live=no(),
-      drone_delay=torch.tensor(DEPLOY_DELAYS, dtype=torch.int32,
-                               device=dev).expand(b, -1).clone(),
+      drone_delay=constant(DEPLOY_DELAYS, torch.int32,
+                           dev).expand(b, -1).clone(),
       shot_x=f(0.0),
       shot_y=f(0.0),
       shot_live=torch.zeros((b,), dtype=torch.bool, device=dev),

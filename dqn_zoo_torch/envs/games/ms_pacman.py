@@ -221,8 +221,9 @@ def ms_pacman_step(state: MsPacmanState, action: torch.Tensor,
   ate_power = state.power[at]
   pellet = state.pellet.clone()
   power = state.power.clone()
-  pellet[at] = False
-  power[at] = False
+  # Device values: a Python scalar here would be copied from the host.
+  pellet[at] = torch.zeros_like(ate_pellet)
+  power[at] = torch.zeros_like(ate_power)
   reward = ate_pellet * PELLET_POINTS + ate_power * POWER_POINTS
   fright = torch.where(ate_power, POWER_FRAMES,
                        torch.clamp(state.fright - 1, min=0))
@@ -314,14 +315,14 @@ def ms_pacman_render(state: MsPacmanState) -> torch.Tensor:
   for g in range(NUM_GHOSTS):
     index[rows, state.gr[:, g].long(), state.gc[:, g].long()] = \
         torch.where(frightened, 8, 4 + g)
-  index[rows, state.pr.long(), state.pc.long()] = 9
+  index[rows, state.pr.long(), state.pc.long()] = torch.full_like(rows, 9)
   big = c.palette[index].repeat_interleave(CELL, dim=1).repeat_interleave(
       CELL, dim=2)
   frame = torch.zeros((b, 210, 160, 3), dtype=torch.uint8, device=dev)
   frame[:, Y0:Y0 + ROWS * CELL, X0:X0 + COLS * CELL] = big
   lives_bar = render.rect_mask(200, 206, 8, 8 + 10 * state.lives, dev)
-  frame[lives_bar] = c.palette[9]
-  return frame
+  # A select, not a masked write: that would read the mask on the host.
+  return torch.where(lives_bar[..., None], c.palette[9], frame)
 
 
 def ms_pacman_lives(state: MsPacmanState) -> torch.Tensor:

@@ -26,7 +26,7 @@ from typing import NamedTuple
 import torch
 
 from dqn_zoo_torch.envs import f32, render
-from dqn_zoo_torch.envs.api import Game, register_game
+from dqn_zoo_torch.envs.api import Game, constant, register_game
 from dqn_zoo_torch.envs.games import first_true, joystick
 
 TOP, BOTTOM = 40.0, 196.0
@@ -110,8 +110,7 @@ def star_gunner_init(draws: StarGunnerInitDraws) -> StarGunnerState:
       sy=draws.sy.to(torch.float32),
       rx=torch.full((b, n), RIGHT, dtype=torch.float32, device=dev),
       ry=draws.ry.to(torch.float32), rvy=fz(n), rlive=bz(n),
-      rdelay=torch.tensor([5, 35, 65], dtype=torch.int32,
-                          device=dev).expand(b, n).clone(),
+      rdelay=constant((5, 35, 65), torch.int32, dev).expand(b, n).clone(),
       shot_x=fz(), shot_y=fz(), shot_live=bz(), bx=fz(n), by=fz(n),
       blive=bz(n),
       lives=torch.full((b,), LIVES, dtype=torch.int32, device=dev),

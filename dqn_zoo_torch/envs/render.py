@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from dqn_zoo_torch.envs.api import FRAME_HEIGHT, FRAME_WIDTH
+from dqn_zoo_torch.envs.api import FRAME_HEIGHT, FRAME_WIDTH, constant
 
 
 def _edge(v):
@@ -33,11 +33,6 @@ def rect_mask(y0, y1, x0, x1, device) -> torch.Tensor:
   return rm[..., :, None] & cm[..., None, :]
 
 
-# (colours, device) -> (K, 3) uint8 palette: a copy from the host each
-# frame would wait for the device.
-_PALETTES: dict = {}
-
-
 def compose(batch: int, device, background_rgb, *layers) -> torch.Tensor:
   """Paints (mask, rgb) layers over a constant background, later on top.
 
@@ -47,10 +42,7 @@ def compose(batch: int, device, background_rgb, *layers) -> torch.Tensor:
   palette is made once for each set of colours and device.
   """
   colours = (tuple(background_rgb),) + tuple(tuple(rgb) for _, rgb in layers)
-  palette = _PALETTES.get((colours, device))
-  if palette is None:
-    palette = _PALETTES[colours, device] = torch.tensor(
-        colours, dtype=torch.uint8, device=device)
+  palette = constant(colours, torch.uint8, device)
   index = torch.zeros((batch, FRAME_HEIGHT, FRAME_WIDTH), dtype=torch.int64,
                       device=device)
   for k, (mask, _) in enumerate(layers, 1):

@@ -15,6 +15,12 @@ A game with `per_frame_draws` (seaquest) gets draws with a leading frame
 axis, one slice for each raw frame of the group and of the noop burn, as
 the reference splits a new key on every frame; the others get one set that
 serves every frame.
+
+On the card the reset branch's device work (the burn, and the new
+episodes' frame and lives) is one CUDA graph, captured on the first reset
+and replayed on the later ones: the same kernels on the same inputs as the
+eager branch, which the CPU keeps, with one launch from the host in place
+of a few thousand.
 """
 
 from __future__ import annotations
@@ -100,8 +106,20 @@ class VectorAtariEnv:
         needs_reset=torch.ones((b,), dtype=torch.bool, device=dev),
     )
 
+  def _reset(self, draws: EnvDraws):
+    """`_reset_all`, on the card by the graph of this env's shapes. Its
+    outputs are overwritten by the graph's next replay."""
+    if self.device.type != "cuda":
+      return self._reset_all(draws)
+    key = (self.game, self.batch_size, self.config, self.device)
+    graph = _RESET_GRAPHS.get(key)
+    if graph is None:
+      graph = _RESET_GRAPHS[key] = _ResetGraph(self, draws)
+    return graph(draws)
+
   def _reset_all(self, draws: EnvDraws):
-    """New episode states for every env after its 1..max_noops noop frames.
+    """New episode states for every env after its 1..max_noops noop frames,
+    with their frames and lives: the reset branch's device work.
 
     An episode that ends during the burn freezes at its last pre-done frame,
     as in the reference."""
@@ -117,7 +135,7 @@ class VectorAtariEnv:
       keep = done | d2
       gs = tree_where(active & ~keep, g2, gs)
       done = torch.where(active, keep, done)
-    return gs
+    return gs, self.game.render(gs), self.game.lives(gs)
 
   def step(self, state: VecEnvState, actions: torch.Tensor,
            draws: EnvDraws) -> Tuple[VecEnvState, GroupOutput]:
@@ -125,7 +143,8 @@ class VectorAtariEnv:
 
     Functional: returns new tensors and leaves `state` as it was. Its
     spans: sync.reset (the read of whether any env needs a reset) and,
-    where one does, env.reset_burn, counted under env.reset_branch."""
+    where one does, env.reset_burn (the reset branch's device work, on the
+    card its graph's replay), counted under env.reset_branch."""
     b, dev = self.batch_size, self.device
     zero_frame = torch.zeros((b, FRAME_HEIGHT, FRAME_WIDTH, 3),
                              dtype=torch.uint8, device=dev)
@@ -163,19 +182,20 @@ class VectorAtariEnv:
     false = torch.zeros_like(reset)
     if profiling.host_read(reset.any(), "reset"):
       with profiling.span("env.reset_burn"):
-        gs_r = self._reset_all(draws)
+        gs_r, frame_r, lives_r = self._reset(draws)
       profiling.count("env.reset_branch")
+      # The selects make new tensors: nothing returned aliases the graph's.
       col = reset[:, None, None, None]
       gs_c = tree_where(reset, gs_r, gs_c)
       f_pen = torch.where(col, zero_frame, f_pen)
-      f_last = torch.where(col, self.game.render(gs_r), f_last)
+      f_last = torch.where(col, frame_r, f_last)
       reward = torch.where(reset, fzero, reward)
       discount = torch.where(reset, 1.0, discount)
       is_last = torch.where(reset, false, is_last)
       truncated = torch.where(reset, false, truncated)
       frames = torch.where(reset, torch.ones_like(frames), frames)
       ep = torch.where(reset, torch.ones_like(ep), ep)
-      lives = torch.where(reset, self.game.lives(gs_r), lives)
+      lives = torch.where(reset, lives_r, lives)
     out = GroupOutput(
         frame_penult=f_pen,
         frame_last=f_last,
@@ -189,3 +209,52 @@ class VectorAtariEnv:
         lives=lives,
     )
     return VecEnvState(gs_c, ep, is_last.clone()), out
+
+
+def _tensors(draws: EnvDraws):
+  """The tensors the reset branch reads: noops, init's, burn's (a game's
+  draws may be None: it draws nothing there)."""
+  return (draws.noops, *(draws.init or ()), *(draws.burn or ()))
+
+
+def _clone(group):
+  return None if group is None else type(group)(*(x.clone() for x in group))
+
+
+# (game, batch size, VectorEnvConfig, device) -> its _ResetGraph: one
+# capture a process, which the eval superstep's new env each call finds.
+_RESET_GRAPHS: dict = {}
+
+
+class _ResetGraph:
+  """`env._reset_all` as one CUDA graph on static copies of the draws
+  it reads. Made from the first reset's draws: a warm-up on a side stream
+  (which fills the games' constant tables, whose copies from the host
+  cannot be captured), then the capture, counted under
+  env.reset_graph_capture. Each call copies its draws in and replays,
+  counted under env.reset_graph."""
+
+  def __init__(self, env: VectorAtariEnv, draws: EnvDraws):
+    self.inputs = EnvDraws(noops=draws.noops.clone(),
+                           init=_clone(draws.init), burn=_clone(draws.burn),
+                           step=None)
+    with torch.cuda.device(env.device):
+      side = torch.cuda.Stream()
+      side.wait_stream(torch.cuda.current_stream())
+      with torch.cuda.stream(side):
+        env._reset_all(self.inputs)
+      torch.cuda.current_stream().wait_stream(side)
+      self.graph = torch.cuda.CUDAGraph()
+      # Thread-local: a call the capture forbids fails in this thread, and
+      # other threads' calls (NCCL's watchdog querying its events, under
+      # data parallelism) neither fail nor spoil the capture.
+      with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+        self.outputs = env._reset_all(self.inputs)
+    profiling.count("env.reset_graph_capture")
+
+  def __call__(self, draws: EnvDraws):
+    for dst, src in zip(_tensors(self.inputs), _tensors(draws)):
+      dst.copy_(src)
+    self.graph.replay()
+    profiling.count("env.reset_graph")
+    return self.outputs
